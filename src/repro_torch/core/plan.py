@@ -1,0 +1,146 @@
+"""Execution plans — frozen, hashable job descriptions (port of ``repro.core.plan``).
+
+An :class:`ExecutionPlan` says what to run: a vertex program, a strategy,
+iteration limits, the residency/execution/activity axes and the program's
+Initialize kwargs. Array-valued kwargs (numpy arrays or tensors) are
+frozen into content-hashed :class:`FrozenArray` values, so plans stay
+hashable with value semantics.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.vertex_programs import VertexProgram
+
+__all__ = ["ExecutionPlan", "FrozenArray"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FrozenArray:
+    """An immutable, content-hashed snapshot of an array-valued kwarg."""
+
+    data: bytes
+    shape: tuple[int, ...]
+    dtype: str
+
+    @classmethod
+    def freeze(cls, value) -> "FrozenArray":
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        arr = np.asarray(value)
+        return cls(data=arr.tobytes(), shape=arr.shape, dtype=str(arr.dtype))
+
+    def thaw(self) -> np.ndarray:
+        return np.frombuffer(self.data, dtype=np.dtype(self.dtype)).reshape(
+            self.shape
+        )
+
+
+def _freeze_value(v):
+    if isinstance(v, FrozenArray):
+        return v
+    if isinstance(v, (np.ndarray, torch.Tensor)):
+        return FrozenArray.freeze(v)
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze_value(x) for x in v)
+    if isinstance(v, np.generic):
+        return v.item()
+    return v
+
+
+def _thaw_value(v):
+    if isinstance(v, FrozenArray):
+        return v.thaw()
+    if isinstance(v, tuple):
+        return tuple(_thaw_value(x) for x in v)
+    return v
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """One job against a staged graph.
+
+    Args:
+      program: the vertex program (frozen dataclass — hashable).
+      strategy: "auto" | "spu" | "dpu" | "mpu" | "fused". "auto" resolves
+        against the session's memory budget (the paper's adaptive choice).
+      max_iters: update-sweep budget.
+      tol: convergence tolerance handed to ``program.changed``.
+      residency: per-plan override of the session's residency axis
+        (``None`` inherits).
+      execution: per-plan override of the session's execution axis
+        (``None`` inherits).
+      activity: ``"auto"`` lets monotone programs skip tiles whose source
+        intervals did not change; ``"off"`` forces full sweeps. Results
+        are bit-identical either way.
+      program_kwargs: Initialize kwargs (e.g. ``{"root": 3}``), validated
+        against ``program.accepted_kwargs()``.
+    """
+
+    program: VertexProgram
+    strategy: str = "auto"
+    max_iters: int = 200
+    tol: float = 1e-10
+    residency: str | None = None
+    execution: str | None = None
+    activity: str = "auto"
+    program_kwargs: Any = ()
+
+    def __post_init__(self):
+        if self.residency not in (None, "device", "host", "disk", "auto"):
+            raise ValueError(
+                "residency must be None, 'device', 'host', 'disk' or 'auto', "
+                f"got {self.residency!r}"
+            )
+        if self.execution not in (
+            None, "per_block", "packed", "packed_kernel", "auto"
+        ):
+            raise ValueError(
+                "execution must be None, 'per_block', 'packed', "
+                f"'packed_kernel' or 'auto', got {self.execution!r}"
+            )
+        if self.activity not in ("auto", "off"):
+            raise ValueError(
+                f"activity must be 'auto' or 'off', got {self.activity!r}"
+            )
+        kw = self.program_kwargs
+        items = kw.items() if isinstance(kw, Mapping) else tuple(kw)
+        frozen = tuple(sorted((str(k), _freeze_value(v)) for k, v in items))
+        accepted = self.program.accepted_kwargs()
+        unknown = sorted(k for k, _ in frozen if k not in accepted)
+        if unknown:
+            hint = (
+                f"accepted kwargs: {sorted(accepted)}"
+                if accepted
+                else "it accepts no program_kwargs"
+            )
+            raise TypeError(
+                f"unknown program_kwargs {unknown} for program "
+                f"{self.program.name!r}; {hint}"
+            )
+        object.__setattr__(self, "program_kwargs", frozen)
+
+    def kwargs_dict(self) -> dict[str, Any]:
+        """Thawed Initialize kwargs, ready for ``program.init_attrs(...)``."""
+        return {k: _thaw_value(v) for k, v in self.program_kwargs}
+
+    def batch_key(self) -> tuple:
+        """Plans sharing a batch_key may fuse into one sweep sequence.
+
+        Program, strategy, limits and the residency/execution/activity axes
+        must agree; Initialize kwargs may differ. ``run_batch`` also needs
+        the plans' aux to be identical or stackable.
+        """
+        return (
+            self.program,
+            self.strategy,
+            self.max_iters,
+            self.tol,
+            self.residency,
+            self.execution,
+            self.activity,
+        )

@@ -1,0 +1,16 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch version.
+
+- :mod:`repro_torch.kernels.packed_sweep` — the fused tile sweep
+  (``csrc/packed_sweep.cu``), counterpart of the JAX package's Pallas
+  ``repro.kernels.packed_sweep``.
+
+Kernels are built from ``csrc/`` at first use (:mod:`._build`); importing
+this package builds nothing.
+"""
+from repro_torch.kernels.packed_sweep import (
+    packed_sweep_update,
+    packed_sweep_update_ref,
+    prepare_packed_tiles,
+)
+
+__all__ = ["packed_sweep_update", "packed_sweep_update_ref", "prepare_packed_tiles"]

@@ -1,0 +1,392 @@
+"""The fused tile sweep: CUDA kernel wrapper, its plain PyTorch version, staging.
+
+One update sweep's gather-reduce over the :class:`repro_torch.core.dsss.
+PackedSweep` layout. For each query ``k`` and each (selected) tile:
+
+1. gather ``attrs[k, src]`` and the aux leaves by ``src`` (and ``dst``);
+2. apply the program's gather, with the edge weights if present;
+3. mask edges whose source interval is inactive to ``reduce_identity``;
+4. reduce each run (one ``run_local`` slot) in ascending edge order,
+   starting from ``segment_fill_value``;
+5. fold the run partials into ``acc[k, run_dst]`` in ascending run order
+   (ascending source interval, the schedules' fold order).
+
+:func:`packed_sweep_update` is the entry point. On a CPU tensor it runs
+:func:`packed_sweep_update_ref`, the plain version; on a CUDA tensor it
+launches the hand-written kernel of ``csrc/packed_sweep.cu`` or raises.
+Both give the same bits: float sums are left folds in a pinned order, with
+no atomics, so a run repeated gives the same bits too.
+
+The kernel needs a run index that :func:`prepare_packed_tiles` builds once
+per layout on the host: each run's edge span, its tile and destination,
+and a destination → runs CSR in ascending run order.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.identities import reduce_identity, segment_fill_value
+from repro_torch.core.vertex_programs import (
+    BFS,
+    SSSP,
+    WCC,
+    MaxLabelForward,
+    PageRank,
+    ReachBackward,
+)
+
+__all__ = [
+    "packed_sweep_update",
+    "packed_sweep_update_ref",
+    "prepare_packed_tiles",
+    "launches",
+    "LONG_RUN",
+]
+
+# Kernel launches of packed_sweep_update on CUDA tensors (one per call that
+# reaches the card). Callers reset it to 0 and read it around a run.
+launches = 0
+
+# Runs longer than this many edges are folded by a whole warp (lanes share
+# the gathers, the fold stays in edge order); shorter ones by one thread.
+LONG_RUN = 64
+
+# Leaves of the tile layout itself, in PackedSweep order.
+TILE_LEAVES = ("src", "dst", "run_local", "run_dst", "e_valid")
+
+# The kernel's program table: id in csrc/packed_sweep.cu, dtype, and the
+# aux leaves its gather reads (aux0, aux1). Exact types only: a subclass
+# may change gather.
+_KERNEL_PROGRAMS = {
+    PageRank: (0, torch.float32, ("inv_out_degree",)),
+    BFS: (1, torch.int32, ()),
+    WCC: (2, torch.int32, ()),
+    SSSP: (3, torch.float32, ()),
+    MaxLabelForward: (4, torch.int32, ("mask",)),
+    ReachBackward: (5, torch.int32, ("mask", "color")),
+}
+
+
+# ---------------------------------------------------------------------------
+# Staging
+# ---------------------------------------------------------------------------
+def run_index(packed) -> dict[str, np.ndarray]:
+    """The kernel's run index for one layout (host numpy, int32 leaves).
+
+    Run ``r`` is slot ``r - run_base[t]`` of tile ``t``, numbered in
+    ascending (tile, slot) order. Returns each run's flat edge span
+    ``[run_start, run_end)`` (flat position ``t·T + e``), ``run_tile``,
+    ``run_target`` (its destination), the destination → runs CSR
+    ``dst_ptr``/``dst_runs`` (ascending run order within a destination),
+    and ``long_runs`` (runs longer than :data:`LONG_RUN`).
+
+    Raises :class:`ValueError` when a run's edges are not contiguous,
+    as in subshard tiles of a ``src_sorted`` graph.
+    """
+    NT, T = packed.src.shape
+    if NT * T >= 2**31:
+        raise ValueError(f"tile layout of {NT}x{T} slots exceeds int32 offsets")
+    u = packed.u.astype(np.int64)
+    run_base = np.concatenate([[0], np.cumsum(u)])
+    R = int(run_base[-1])
+    valid = np.arange(T)[None, :] < packed.e_valid[:, None]
+    flat = np.flatnonzero(valid)
+    gid = (run_base[:-1, None] + packed.run_local)[valid]
+    if gid.size and np.any(np.diff(gid) < 0):
+        raise ValueError(
+            "runs are not contiguous in this tile layout (a src_sorted "
+            "graph): the CUDA tile sweep needs destination-sorted runs"
+        )
+    starts = np.flatnonzero(np.concatenate([[True], gid[1:] != gid[:-1]]))
+    if not np.array_equal(gid[starts], np.arange(R)):
+        raise ValueError("tile layout has run slots below u with no edges")
+    ends = np.concatenate([starts[1:], [gid.size]])
+    run_start = flat[starts]
+    run_end = flat[ends - 1] + 1
+    run_tile = np.repeat(np.arange(NT), u)
+    slot = np.arange(R) - run_base[:-1][run_tile]
+    run_target = packed.run_dst[run_tile, slot].astype(np.int64)
+    dst_runs = np.argsort(run_target, kind="stable")
+    dst_ptr = np.searchsorted(
+        run_target[dst_runs], np.arange(packed.n_pad + 1), side="left"
+    )
+    long_runs = np.flatnonzero(run_end - run_start > LONG_RUN)
+    as32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
+    return {
+        "run_start": as32(run_start),
+        "run_end": as32(run_end),
+        "run_tile": as32(run_tile),
+        "run_target": as32(run_target),
+        "dst_ptr": as32(dst_ptr),
+        "dst_runs": as32(dst_runs),
+        "long_runs": as32(long_runs),
+    }
+
+
+def prepare_packed_tiles(packed, *, has_weights: bool, device) -> dict:
+    """Upload the tile leaves (and, where runs are contiguous, the run index).
+
+    The one upload of the layout: ``src``/``dst``/``run_local``/``run_dst``
+    ``(NT, T)``, ``e_valid`` ``(NT,)``, ``weights`` when present, plus the
+    leaves of :func:`run_index`. A ``src_sorted`` layout gets no run index;
+    the plain version runs on it, the kernel refuses it.
+    """
+    leaves = {k: getattr(packed, k) for k in TILE_LEAVES}
+    if has_weights:
+        leaves["weights"] = packed.weights
+    try:
+        leaves.update(run_index(packed))
+    except ValueError:
+        if packed.mode == "adaptive":
+            raise
+    return {
+        k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        for k, v in leaves.items()
+    }
+
+
+# ---------------------------------------------------------------------------
+# The plain version
+# ---------------------------------------------------------------------------
+def _edge_aux(aux: dict, aux_batched: bool, idx: torch.Tensor) -> dict:
+    """Aux leaves seen per edge: vertex leaves gathered by ``idx``.
+
+    Shared vertex leaves ``(n_pad,)`` become ``(E,)``; batched ``(K, n_pad)``
+    become ``(K, E)``; scalars stay 0-d, or ``(K, 1)`` when batched.
+    """
+    out = {}
+    for name, v in aux.items():
+        if v.ndim == (2 if aux_batched else 1):
+            out[name] = v[..., idx]
+        elif aux_batched:
+            out[name] = v.reshape(-1, 1)
+        else:
+            out[name] = v
+    return out
+
+
+def packed_sweep_update_ref(
+    program,
+    attrs_flat: torch.Tensor,  # (K, n_pad) previous attributes
+    acc_flat: torch.Tensor,  # (K, n_pad) running ⊕ accumulators
+    aux: dict,  # run-constant aux; (K,)-leading leaves when aux_batched
+    tiles: dict,  # tile leaves, (NT, ...) leading axis
+    row_active: torch.Tensor,  # (P,) bool
+    has_weights: bool,
+    aux_batched: bool = False,
+    idx: torch.Tensor | None = None,  # ascending selected tile indices
+    a_valid: int | None = None,  # real entries of idx (default: all)
+) -> torch.Tensor:
+    """Plain PyTorch version of the tile sweep; returns the new accumulator.
+
+    Independent of the kernel's run index: runs are regrouped from the
+    tile leaves on every call. Sums are ordered loops — the position
+    inside runs, vectorised across runs, then the run rank inside a
+    destination, vectorised across destinations — never ``index_add_``
+    or ``cumsum``, whose order or precision differ. min/max use
+    ``scatter_reduce_``, which is exact in any order.
+    """
+    K, n_pad = attrs_flat.shape
+    dev = attrs_flat.device
+    NT, T = tiles["src"].shape
+    if idx is None:
+        sel = torch.arange(NT, device=dev)
+    else:
+        n_sel = idx.shape[0] if a_valid is None else int(a_valid)
+        sel = idx[:n_sel].to(device=dev, dtype=torch.long)
+    S = sel.shape[0]
+    valid = torch.arange(T, device=dev)[None, :] < tiles["e_valid"][sel][:, None]
+    slot_id = torch.arange(S, device=dev)[:, None] * T + tiles["run_local"][sel]
+    gid = slot_id[valid]  # (E,) run slot of each edge, ascending (tile, edge)
+    e_src = tiles["src"][sel][valid].long()
+    e_dst = tiles["dst"][sel][valid].long()
+    e_w = tiles["weights"][sel][valid] if has_weights else None
+
+    vert_active = row_active.to(dev).repeat_interleave(n_pad // row_active.shape[0])
+    contrib = program.gather(
+        attrs_flat[:, e_src],
+        e_w,
+        _edge_aux(aux, aux_batched, e_src),
+        _edge_aux(aux, aux_batched, e_dst) if program.needs_dst_aux else None,
+    ).to(acc_flat.dtype)
+    ident = reduce_identity(program.reduce, contrib.dtype).to(dev)
+    contrib = torch.where(vert_active[e_src], contrib.expand(K, -1), ident)
+    fill = segment_fill_value(program.reduce, contrib.dtype).to(dev)
+
+    runs, run_of_edge, counts = torch.unique(
+        gid, sorted=True, return_inverse=True, return_counts=True
+    )
+    R = runs.shape[0]
+    run_dst = tiles["run_dst"][sel].reshape(-1)[runs].long()
+    out = acc_flat.clone()
+    if program.reduce != "sum":
+        how = "amin" if program.reduce == "min" else "amax"
+        partial = fill.expand(K, R).clone()
+        partial.scatter_reduce_(1, run_of_edge.expand(K, -1), contrib, how)
+        out.scatter_reduce_(1, run_dst.expand(K, -1), partial, how)
+        return out
+
+    # Phase 1: each run's left fold in ascending edge order. Edges are
+    # grouped by run (stable sort keeps edge order), and runs are visited
+    # longest first so the runs still open at position j are a prefix.
+    order = torch.sort(run_of_edge, stable=True).indices
+    grouped = contrib[:, order]
+    starts = torch.cumsum(counts, 0) - counts
+    by_len = torch.sort(counts, descending=True, stable=True).indices
+    open_at = torch.bincount(counts, minlength=1).flip(0).cumsum(0).flip(0)
+    partial_by_len = fill.expand(K, R).clone()
+    start_by_len = starts[by_len]
+    for j in range(int(counts.max()) if R else 0):
+        c = int(open_at[j + 1])  # runs with more than j edges
+        partial_by_len[:, :c] += grouped[:, start_by_len[:c] + j]
+    partial = torch.empty_like(partial_by_len)
+    partial[:, by_len] = partial_by_len
+
+    # Phase 2: fold each destination's runs in ascending run order.
+    d_order = torch.sort(run_dst, stable=True).indices
+    dests, d_counts = torch.unique_consecutive(run_dst[d_order], return_counts=True)
+    d_starts = torch.cumsum(d_counts, 0) - d_counts
+    for j in range(int(d_counts.max()) if R else 0):
+        has = d_counts > j
+        d = dests[has]
+        out[:, d] = out[:, d] + partial[:, d_order[d_starts[has] + j]]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The kernel
+# ---------------------------------------------------------------------------
+_ARGTYPES = (
+    [ctypes.c_int] * 6  # prog, K, n_pad, R, L, isz
+    + [ctypes.c_int, ctypes.c_longlong]  # long_min, aux_stride
+    + [ctypes.c_void_p] * 17  # tensors (see the C entry point)
+    + [ctypes.c_void_p]  # stream
+)
+
+
+def _library():
+    from repro_torch.kernels import _build
+
+    lib = _build.load("packed_sweep")
+    fn = lib.packed_sweep_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _check(t: torch.Tensor, name: str, dtype, device, shape=None) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _launch(
+    program, attrs_flat, acc_flat, aux, tiles, row_active, has_weights,
+    aux_batched, idx, a_valid,
+) -> torch.Tensor:
+    global launches
+    spec = _KERNEL_PROGRAMS.get(type(program))
+    if spec is None:
+        raise NotImplementedError(
+            f"the CUDA tile sweep has no gather for program {type(program).__name__}"
+        )
+    prog_id, dtype, aux_names = spec
+    if "run_start" not in tiles:
+        raise ValueError(
+            "tiles carry no run index (src_sorted layout); the CUDA tile "
+            "sweep needs destination-sorted runs"
+        )
+    dev = attrs_flat.device
+    K, n_pad = attrs_flat.shape
+    NT, T = tiles["src"].shape
+    P = row_active.shape[0]
+    _check(attrs_flat, "attrs_flat", dtype, dev)
+    _check(acc_flat, "acc_flat", dtype, dev, (K, n_pad))
+    for name in ("src", "dst"):
+        _check(tiles[name], name, torch.int32, dev, (NT, T))
+    if has_weights:
+        _check(tiles["weights"], "weights", torch.float32, dev, (NT, T))
+    R = tiles["run_start"].shape[0]
+    for name in ("run_start", "run_end", "run_tile", "dst_runs", "long_runs"):
+        _check(tiles[name], name, torch.int32, dev)
+    _check(tiles["dst_ptr"], "dst_ptr", torch.int32, dev, (n_pad + 1,))
+    if n_pad % P:
+        raise ValueError(f"n_pad={n_pad} is not a multiple of P={P}")
+    aux_ptrs = []
+    for name in aux_names:
+        v = aux[name]
+        want = (K, n_pad) if aux_batched else (n_pad,)
+        _check(v, f"aux[{name!r}]", v.dtype, dev, want)
+        if v.dtype != (torch.float32 if name == "inv_out_degree" else torch.int32):
+            raise TypeError(f"aux[{name!r}] has unexpected dtype {v.dtype}")
+        aux_ptrs.append(v.data_ptr())
+    aux_ptrs += [None] * (2 - len(aux_ptrs))
+    tile_sel = None
+    if idx is not None:
+        n_sel = idx.shape[0] if a_valid is None else int(a_valid)
+        tile_sel = torch.zeros(NT, dtype=torch.uint8, device=dev)
+        tile_sel[idx[:n_sel].to(device=dev, dtype=torch.long)] = 1
+    active = row_active.to(device=dev, dtype=torch.uint8).contiguous()
+    partial = torch.empty((K, R), dtype=dtype, device=dev)
+    out = torch.empty_like(acc_flat)
+    fn = _library()
+    err = fn(
+        prog_id, K, n_pad, R, tiles["long_runs"].shape[0], n_pad // P,
+        LONG_RUN, n_pad if aux_batched else 0,
+        attrs_flat.data_ptr(), acc_flat.data_ptr(), out.data_ptr(),
+        partial.data_ptr(), tiles["src"].data_ptr(), tiles["dst"].data_ptr(),
+        _ptr(tiles["weights"]) if has_weights else None,
+        tiles["run_start"].data_ptr(), tiles["run_end"].data_ptr(),
+        tiles["run_tile"].data_ptr(), tiles["dst_ptr"].data_ptr(),
+        tiles["dst_runs"].data_ptr(), tiles["long_runs"].data_ptr(),
+        _ptr(tile_sel), active.data_ptr(), aux_ptrs[0], aux_ptrs[1],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"packed_sweep kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def packed_sweep_update(
+    program,
+    attrs_flat: torch.Tensor,
+    acc_flat: torch.Tensor,
+    aux: dict,
+    tiles: dict,
+    row_active: torch.Tensor,
+    has_weights: bool,
+    aux_batched: bool = False,
+    idx: torch.Tensor | None = None,
+    a_valid: int | None = None,
+) -> torch.Tensor:
+    """One gather-reduce pass over the (selected) tiles; returns the new acc.
+
+    ``idx`` lists the tiles to sweep, ascending (the first ``a_valid``
+    entries count); ``None`` sweeps them all. A CPU ``attrs_flat`` runs
+    :func:`packed_sweep_update_ref`; a CUDA one launches the kernel.
+    """
+    if attrs_flat.device.type == "cpu":
+        return packed_sweep_update_ref(
+            program, attrs_flat, acc_flat, aux, tiles, row_active,
+            has_weights, aux_batched, idx, a_valid,
+        )
+    if attrs_flat.device.type != "cuda":
+        raise ValueError(f"no tile sweep for device {attrs_flat.device}")
+    return _launch(
+        program, attrs_flat, acc_flat, aux, tiles, row_active, has_weights,
+        aux_batched, idx, a_valid,
+    )

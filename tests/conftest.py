@@ -45,3 +45,7 @@ def pytest_configure(config):
         "chaos: fault-injection / crash-resume / degraded-read recovery matrix "
         "(select with -m chaos)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the repro_torch kernels); skips without one",
+    )

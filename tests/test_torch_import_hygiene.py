@@ -1,0 +1,153 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no quiet CPU fall-back."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import identities as tid
+from repro_torch.core.dsss import build_dsss
+from repro_torch.core.session import GraphSession
+from repro_torch.core.vertex_programs import BFS
+from repro_torch.graph.generators import ring
+from repro_torch.graph.preprocess import degree_and_densify
+from repro_torch.kernels import packed_sweep as ps
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = Path(repro_torch.__file__).resolve().parent
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
+
+
+def test_import_pulls_in_no_jax_and_no_repro():
+    code = (
+        "import sys, repro_torch, repro_torch.convert, repro_torch.kernels._build\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_source_imports_neither_jax_nor_repro(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.findall(text), f"{path} imports jax or repro"
+
+
+def _tiny_graph():
+    return build_dsss(degree_and_densify(*ring(16)), 4)
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GraphSession(_tiny_graph())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.resolve_device("cuda")
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to drive the wrapper's CUDA path."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+@pytest.mark.parametrize("kind", ["cuda", "meta"])
+def test_wrapper_never_falls_back_to_the_plain_version(kind, monkeypatch):
+    def no_fallback(*a, **k):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(ps, "packed_sweep_update_ref", no_fallback)
+    g = _tiny_graph()
+    packed = g.packed_sweep()
+    tiles = ps.prepare_packed_tiles(packed, has_weights=False, device="cpu")
+    attrs = torch.zeros((1, g.n_pad), dtype=torch.int32)
+    if kind == "cuda":
+        attrs = attrs.as_subclass(_OnCuda)
+    else:
+        attrs = attrs.to("meta")
+    acc = torch.full((1, g.n_pad), tid.INF_DEPTH, dtype=torch.int32)
+    before = ps.launches
+    with pytest.raises((ValueError, TypeError, RuntimeError)):
+        ps.packed_sweep_update(
+            BFS(), attrs, acc, {}, tiles, torch.ones(g.P, dtype=torch.bool), False
+        )
+    assert ps.launches == before
+
+
+def test_cpu_session_runs_the_plain_version():
+    g = _tiny_graph()
+    before = ps.launches
+    res = GraphSession(g, device="cpu").run(
+        repro_torch.ExecutionPlan(BFS(), max_iters=20, program_kwargs={"root": 0})
+    )
+    np.testing.assert_array_equal(res.attrs, np.arange(16))
+    assert ps.launches == before  # launches count kernel launches only
+
+
+def test_failed_build_raises_with_nvcc_output(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: fake nvcc refused the source' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="fake nvcc refused the source"):
+        _build.load("packed_sweep")
+    with pytest.raises(RuntimeError, match="exit 2"):
+        _build.build_all()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    from repro_torch.kernels import _build
+
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.Path, "exists", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+@pytest.mark.parametrize(
+    "kwargs,err",
+    [
+        ({"residency": "host"}, NotImplementedError),
+        ({"residency": "disk"}, NotImplementedError),
+        ({"execution": "packed"}, NotImplementedError),
+        ({"execution": "per_block"}, NotImplementedError),
+        ({"residency": "nowhere"}, ValueError),
+    ],
+)
+def test_unported_axes_raise(kwargs, err):
+    with pytest.raises(err, match="ROADMAP|must be one of"):
+        GraphSession(_tiny_graph(), device="cpu", **kwargs)
+
+
+def test_unported_plans_raise():
+    g = _tiny_graph()
+    plan = repro_torch.ExecutionPlan(BFS(), max_iters=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        GraphSession(g, device="cpu", memory_budget=1000).run(plan)  # auto -> host
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        GraphSession(g, device="cpu").run(
+            repro_torch.ExecutionPlan(BFS(), strategy="fused", max_iters=4)
+        )
