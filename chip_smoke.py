@@ -24,6 +24,28 @@ Phases, each printing one JSON line:
 4. timing: the kernel, its plain version and one ``torch.sparse.mm`` of the
    same PageRank gather-reduce (the yardstick, used nowhere in the port),
    at the main path's shapes.
+5. dsss_spmv_vs_plain (after phase 2): the sub-shard ToHub kernel against
+   its plain version on the card — the JAX tests' five shapes, slots out of
+   order, and every sub-shard of R-MAT scale 14 (P=4) through
+   ``GraphSession.kernel_operands``; mul/sum, add/min, add/max in float32
+   and bfloat16. Bitwise, and a second launch gives the same bits.
+6. per_block_path: the same scale-22 graph through
+   ``GraphSession(..., execution="per_block")``: PageRank under
+   SPU/DPU/MPU/fused, 10 sweeps, and ``run_batch`` of the 8 BFS roots.
+   SPU/DPU/MPU equal each other and the packed_kernel runs bitwise, fused
+   is within rtol 3e-5 of them and within L1 1.3e-6 of the float64 power
+   iteration, model meters equal the packed path's, and the BFS batch
+   equals the packed batch bitwise. Its block primitives are
+   plain PyTorch (ordered ``segment_reduce`` folds), so it launches neither
+   kernel; the counts are read to show that.
+7. subshard_kernel_path: one PageRank sweep at scale 22 built from
+   ``kernel_operands`` + ``subshard_update`` over every non-empty sub-shard
+   (one kernel launch each), against the session's sweep within rtol 1e-5.
+8. dsss_spmv timing: a full pass over all sub-shards — kernel, plain
+   version, bound, and one ``torch.sparse.mm`` CSR SpMV of the global
+   hub-slot × source-vertex matrix (the yardstick). The plain pass's hub
+   vectors are held against two kernel passes, bitwise, for every
+   sub-shard.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 and the script exits non-zero. Without a CUDA device it exits non-zero
@@ -80,6 +102,8 @@ def main() -> None:
     from repro_torch.graph.generators import rmat, zipf
     from repro_torch.graph.preprocess import degree_and_densify
     from repro_torch.kernels import _build
+    from repro_torch.kernels import dsss_spmv as dk
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import packed_sweep as ps
 
     dev = torch.device("cuda", 0)
@@ -183,6 +207,67 @@ def main() -> None:
         bitwise=True, max_abs_err=max_abs_err, seconds=time.perf_counter() - t0,
     )
 
+    # -- phase 5: the sub-shard ToHub kernel against its plain version -------
+    def b2_bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def b2_case(vals, ops, num_slots, gather_op, reduce, label):
+        kw = dict(gather_op=gather_op, reduce=reduce)
+        parts = dk.dsss_spmv_block_partials(vals, *ops, **kw)
+        hub = dk.subshard_update(vals, *ops, num_slots, **kw)
+        again = dk.subshard_update(vals, *ops, num_slots, **kw)
+        want_parts = dk.dsss_spmv_block_partials_ref(vals, *ops, **kw)
+        want = dk.subshard_update_ref(vals, *ops, num_slots, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(b2_bits(hub), b2_bits(again)), f"dsss_spmv not deterministic: {label}")
+        check(torch.equal(b2_bits(parts), b2_bits(want_parts)), f"dsss_spmv partials != plain: {label}")
+        check(torch.equal(b2_bits(hub), b2_bits(want)), f"dsss_spmv hub != plain: {label}")
+        diff = (hub.double() - want.double()).abs()
+        diff = diff[torch.isfinite(diff)]
+        return float(diff.max()) if diff.numel() else 0.0
+
+    semirings = (("mul", "sum"), ("add", "min"), ("add", "max"))
+    b2_cases = 0
+    b2_max_abs_err = 0.0
+    t0 = time.perf_counter()
+    before = dk.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for gather_op, reduce in semirings:
+            shapes = [(64, 100, 32, True), (300, 2000, 150, True), (128, 513, 128, True),
+                      (1000, 4096, 999, True), (16, 8, 4, True), (300, 2000, 150, False)]
+            for isize, e, nslots, sorted_slots in shapes:
+                r = np.random.default_rng(e + isize)
+                src_local = r.integers(0, isize, e).astype(np.int32)
+                hub_inv = r.integers(0, nslots, e).astype(np.int32)
+                if sorted_slots:
+                    hub_inv = np.sort(hub_inv)
+                w = r.random(e).astype(np.float32) + 0.1
+                vals = torch.from_numpy(r.random(isize).astype(np.float32) + 0.5).to(dtype).to(dev)
+                ops = kops.prepare_subshard_operands(
+                    src_local, hub_inv, w, dtype, gather_op=gather_op, reduce=reduce, device=dev
+                )
+                label = f"{dtype} {gather_op}/{reduce} {isize}x{e}x{nslots} sorted={sorted_slots}"
+                b2_max_abs_err = max(b2_max_abs_err, b2_case(vals, ops, nslots, gather_op, reduce, label))
+                b2_cases += 1
+    src, dst = rmat(14, edge_factor=16, seed=1)
+    w14 = rng.random(src.shape[0]).astype(np.float32) + 0.01
+    g14 = core.build_dsss(degree_and_densify(src, dst, w14, drop_self_loops=True), 4)
+    sess14 = core.GraphSession(g14, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for gather_op, reduce in semirings:
+            for i, j in sorted(sess14.block_keys):
+                vals = torch.from_numpy(rng.random(g14.interval_size).astype(np.float32)).to(dtype).to(dev)
+                ops = sess14.kernel_operands(i, j, dtype, gather_op=gather_op, reduce=reduce)
+                label = f"rmat14 SS[{i},{j}] {dtype} {gather_op}/{reduce}"
+                u = sess14.host_blocks[(i, j)]["u"]
+                b2_max_abs_err = max(b2_max_abs_err, b2_case(vals, ops, u, gather_op, reduce, label))
+                b2_cases += 1
+    emit(
+        "dsss_spmv_vs_plain", cases=b2_cases, launches=dk.launches - before, bitwise=True,
+        max_abs_err=b2_max_abs_err, seconds=time.perf_counter() - t0,
+    )
+    del sess14, g14
+
     # -- phase 3: the main path at full size ---------------------------------
     t0 = time.perf_counter()
     src, dst = rmat(22, edge_factor=16, seed=0)
@@ -217,6 +302,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
 
     ps.launches = 0  # every count to 0 just before the main path
+    dk.launches = 0
     runs = {}
     pr_sweep_ms = {}  # the sweep loop's host clock, ending in a synchronize
     pr_run_ms = {}  # the whole run() call, set-up and result copy included
@@ -249,6 +335,7 @@ def main() -> None:
     torch.cuda.synchronize()
     bfs_launches = ps.launches - before
     main_launches = ps.launches  # read just after the main path
+    check(dk.launches == 0, "the packed path launched the sub-shard kernel")
     peak_bytes = torch.cuda.max_memory_allocated(dev)
     check(bfs.fused and bfs.converged, "BFS batch did not fuse or converge")
     check(bfs_launches == bfs.iterations,
@@ -366,6 +453,200 @@ def main() -> None:
         apply_ms=apply_ms, sweep_ms=mean_ms,
         kernel_share_of_sweep=kernel_ms / mean_ms, nvidia_smi=smi,
     )
+    b1_bound_by = "bytes" if min_bytes / H100_BYTES_PER_S >= ops / H100_FP32_PER_S else "operations"
+
+    # -- phase 6: the per-block path at full width -----------------------------
+    # Its float sums rest on torch.segment_reduce folding each segment in
+    # order on the card when the data is 2-D (e, K); the 1-D form does not
+    # (it reduces as a tree). Check the premise against the CPU's left fold.
+    r = np.random.default_rng(5)
+    seg_len = r.integers(1, 40, 5000)
+    seg_len[::500] = 20000
+    seg_data = (r.random((int(seg_len.sum()), 1)) * 10.0 ** r.integers(-3, 4, (int(seg_len.sum()), 1))).astype(np.float32)
+    seg_cpu = torch.segment_reduce(torch.from_numpy(seg_data), "sum", lengths=torch.from_numpy(seg_len), axis=0, unsafe=True)
+    seg_dev = torch.from_numpy(seg_data).to(dev)
+    seg_len_dev = torch.from_numpy(seg_len).to(dev)
+    seg_2d = torch.segment_reduce(seg_dev, "sum", lengths=seg_len_dev, axis=0, unsafe=True).cpu()
+    seg_1d = torch.segment_reduce(seg_dev[:, 0].contiguous(), "sum", lengths=seg_len_dev, axis=0, unsafe=True).cpu()
+    one_run = torch.rand(300_000, 1, device=dev)
+    one_len = torch.tensor([300_000], device=dev)
+    one_run_ms = cuda_ms(lambda: torch.segment_reduce(one_run, "sum", lengths=one_len, axis=0, unsafe=True), reps=5)
+    seg_probe = {
+        "segments": int(seg_len.shape[0]),
+        "mismatch_2d": int((seg_2d.view(torch.int32) != seg_cpu.view(torch.int32)).sum()),
+        "mismatch_1d": int((seg_1d.view(torch.int32) != seg_cpu[:, 0].view(torch.int32)).sum()),
+        "one_300k_run_ms": one_run_ms,
+    }
+    check(seg_probe["mismatch_2d"] == 0, f"segment_reduce over (e, K) is not an ordered fold: {seg_probe}")
+    emit("segment_reduce_order", **seg_probe)
+    del seg_dev, one_run
+
+    t0 = time.perf_counter()
+    pb = core.GraphSession(
+        g, device=None, residency="device", memory_budget=budget, execution="per_block"
+    )
+    host_blocks = pb.host_blocks
+    t_host_blocks = time.perf_counter() - t0
+    pb.run(core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0))  # stages, warms
+    pb.fused_arrays()  # the fused path's destination-sorted edges, staged once
+    torch.cuda.synchronize()
+    t_stage_blocks = time.perf_counter() - t0 - t_host_blocks
+    ps.launches = 0  # every count to 0 just before the per-block path
+    dk.launches = 0
+    pb_runs = {}
+    pb_sweep_ms = {}
+    pb_run_ms = {}
+    for strategy in ("spu", "dpu", "mpu", "fused"):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = pb.run(core.ExecutionPlan(pr, strategy=strategy, max_iters=10, tol=0.0))
+        end.record()
+        torch.cuda.synchronize()
+        check(res.meters.iterations == 10, f"per_block {strategy}: {res.meters.iterations} sweeps")
+        pb_runs[strategy] = res
+        pb_sweep_ms[strategy] = 1e3 * res.meters.wall_seconds / res.meters.iterations
+        pb_run_ms[strategy] = start.elapsed_time(end)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    pb_bfs = pb.run_batch(bfs_plans)
+    end.record()
+    torch.cuda.synchronize()
+    pb_bfs_run_ms = start.elapsed_time(end)
+    pb_launches = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches}  # just after
+    check(pb_launches == {"packed_sweep": 0, "dsss_spmv": 0},
+          f"the per-block path launched a kernel: {pb_launches}")
+    for s in ("spu", "dpu", "mpu"):
+        check(np.array_equal(pb_runs[s].attrs.view(np.int32), ref.view(np.int32)),
+              f"per_block PageRank {s} != packed_kernel bitwise")
+        check(pb_runs[s].meters.model_dict() == runs[s].meters.model_dict(),
+              f"per_block {s} model meters != packed_kernel's")
+    # Fused folds each destination's edges in one float32 run (the largest
+    # hub has ~10^5), SPU per sub-shard first, so the two round apart: rtol
+    # 1e-6 holds only on small graphs, as in the tests. The run is
+    # deterministic; the limits are set from its readings on the H100 (max
+    # rel 1.16e-5, L1 to float64 4.24e-7 against the packed SPU's 2.03e-7).
+    fused = pb_runs["fused"].attrs
+    fused_rel = float(np.max(np.abs(fused.astype(np.float64) - ref)
+                             / np.maximum(np.abs(ref.astype(np.float64)), 1e-30)))
+    check(np.allclose(fused, ref, rtol=3e-5, atol=1e-12),
+          f"per_block fused PageRank off SPU by rtol {fused_rel}")
+    fused_l1 = float((torch.from_numpy(fused.astype(np.float64)).to(dev) - p).abs().sum())
+    check(fused_l1 < 1.3e-6, f"fused PageRank L1 distance to float64 power iteration {fused_l1}")
+    check(pb_bfs.fused and pb_bfs.converged and pb_bfs.iterations == bfs.iterations,
+          "per_block BFS batch did not fuse, converge or match the packed sweeps")
+    for a, b in zip(pb_bfs, bfs):
+        check(np.array_equal(a.attrs, b.attrs), "per_block BFS batch != packed_kernel batch")
+    check(pb_bfs.meters.model_dict() == bfs.meters.model_dict(), "per_block BFS meters differ")
+    emit(
+        "per_block_path", launches=pb_launches, pr_ms_per_sweep=pb_sweep_ms,
+        pr_run_ms=pb_run_ms, pr_mteps={s: r.meters.mteps() for s, r in pb_runs.items()},
+        fused_max_rel_vs_spu=fused_rel, fused_l1_vs_float64=fused_l1, spu_l1_vs_float64=l1,
+        bfs_sweeps=pb_bfs.iterations,
+        bfs_ms_per_sweep=1e3 * pb_bfs.meters.wall_seconds / pb_bfs.iterations,
+        bfs_run_ms=pb_bfs_run_ms, host_blocks_s=t_host_blocks,
+        stage_and_warm_s=t_stage_blocks, peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+    )
+
+    # -- phase 7: one PageRank sweep from the sub-shard kernel -----------------
+    isz = g.interval_size
+    keys = sorted(pb.block_keys)
+    staged = {}  # operands, hub destinations, and the source interval of each call
+    for i, j in keys:
+        blk = host_blocks[(i, j)]
+        staged[(i, j)] = (
+            pb.kernel_operands(i, j, torch.float32, gather_op="mul", reduce="sum"),
+            torch.from_numpy(blk["hub_dst"][: blk["u"]].astype(np.int64)).to(dev),
+            blk["u"],
+        )
+    x0 = pr.init_attrs(g).to(dev)
+    inv = aux["inv_out_degree"]
+    contrib = x0 * inv
+    dangling = float((x0 * aux["dangling"]).sum())
+    torch.cuda.synchronize()
+
+    def kernel_sweep(update=kops.subshard_update):
+        accs = [torch.zeros(isz, device=dev) for _ in range(g.P)]
+        for i, j in keys:
+            ops_ij, hub_dst, u = staged[(i, j)]
+            hub = update(contrib[i * isz:(i + 1) * isz], *ops_ij, u, gather_op="mul", reduce="sum")
+            accs[j][hub_dst] = accs[j][hub_dst] + hub
+        return accs
+
+    ps.launches = 0  # every count to 0 just before the sub-shard kernel path
+    dk.launches = 0
+    accs = kernel_sweep()
+    torch.cuda.synchronize()
+    sub_launches = dk.launches  # just after
+    check(sub_launches == len(keys), f"sub-shard path: {sub_launches} launches for {len(keys)} calls")
+    check(ps.launches == 0, "the sub-shard path launched the tile sweep")
+    acc = torch.cat(accs)
+    swept = (1 - pr.damping) / n + pr.damping * (acc + dangling / n)
+    one = sess.run(core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0)).attrs
+    swept_np = swept[:n].cpu().numpy()
+    sub_err = float(np.max(np.abs(swept_np.astype(np.float64) - one)))
+    check(np.allclose(swept_np, one, rtol=1e-5, atol=1e-12),
+          f"sub-shard kernel sweep off the session's by {sub_err}")
+    emit(
+        "subshard_kernel_path", launches=sub_launches, subshards=len(keys),
+        max_abs_err_vs_session=sub_err, sum=float(swept_np.astype(np.float64).sum()),
+    )
+
+    # -- phase 8: dsss_spmv timing over a full pass ------------------------------
+    def b2_pass(update):
+        """The ToHub update of every sub-shard, nothing else: the hub vectors."""
+        return [
+            update(contrib[i * isz:(i + 1) * isz], *staged[(i, j)][0], staged[(i, j)][2],
+                   gather_op="mul", reduce="sum")
+            for i, j in keys
+        ]
+
+    b2_ms = cuda_ms(lambda: b2_pass(kops.subshard_update), reps=10)
+    plain_hubs = []
+    b2_plain_ms = cuda_ms(lambda: plain_hubs.append(b2_pass(dk.subshard_update_ref)), reps=1, warm=0)
+    # The kernel against its plain version at the main path's shapes: every
+    # sub-shard, bitwise, twice (hub runs here span up to ~40 blocks).
+    for _ in range(2):
+        for k, (a, b) in enumerate(zip(b2_pass(kops.subshard_update), plain_hubs[0])):
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"dsss_spmv != plain version on scale-22 sub-shard {keys[k]}")
+    del plain_hubs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        b2_pass(kops.subshard_update)
+        torch.cuda.synchronize()
+    b2_device = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            b2_device[e.name[:60]] = b2_device.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
+    # Least bytes: each call's operands (src_idx, hub_inv, weights: 4·E_pad
+    # each; block_base 4·blocks), its source interval (4·isz) and its hub
+    # vector out (4·u). Operations: a multiply and an add per edge slot.
+    b2_bytes = 0
+    b2_ops = 0
+    for ops_ij, _, u in staged.values():
+        e_pad = int(ops_ij[0].shape[0])
+        b2_bytes += 12 * e_pad + 4 * int(ops_ij[3].shape[0]) + 4 * isz + 4 * u
+        b2_ops += 2 * e_pad
+    b2_bound_ms = 1e3 * max(b2_bytes / H100_BYTES_PER_S, b2_ops / H100_FP32_PER_S)
+    b2_bound_by = "bytes" if b2_bytes / H100_BYTES_PER_S >= b2_ops / H100_FP32_PER_S else "operations"
+    slots = torch.from_numpy(g.global_hub_slots()).to(dev)
+    S = int(g.hub_offsets[-1, -1])
+    hcrow = torch.zeros(S + 1, dtype=torch.int64, device=dev)
+    hcrow[1:] = torch.cumsum(torch.bincount(slots, minlength=S), 0)
+    hcol = torch.from_numpy(g.src.astype(np.int64)).to(dev)
+    hub_mat = torch.sparse_csr_tensor(
+        hcrow, hcol, torch.ones(g.m, dtype=torch.float32, device=dev), (S, g.n_pad)
+    )
+    cvec = contrib[:, None]
+    b2_library_ms = cuda_ms(lambda: torch.sparse.mm(hub_mat, cvec), reps=20)
+    emit(
+        "dsss_spmv_timing", kernel_ms=b2_ms, plain_ms=b2_plain_ms, library_ms=b2_library_ms,
+        bound_ms=b2_bound_ms, min_bytes=b2_bytes, ops=b2_ops, calls=len(keys),
+        device_busy_ms_per_pass=sum(b2_device.values()) / 1e3,
+        device_us_per_pass=dict(sorted(b2_device.items(), key=lambda kv: -kv[1])[:6]),
+        hub_slots=S, nvidia_smi=smi,
+    )
+    del hub_mat, slots, hcol, hcrow
+
     print(json.dumps({"kernels": [{
         "name": "packed_sweep",
         "route": "cuda",
@@ -376,8 +657,20 @@ def main() -> None:
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if min_bytes / H100_BYTES_PER_S >= ops / H100_FP32_PER_S else "operations",
+        "bound_by": b1_bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "dsss_spmv",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dsss_spmv.cu",
+        "replaces": "src/repro/kernels/dsss_spmv.py:70",
+        "launches": sub_launches,
+        "max_abs_err": b2_max_abs_err,
+        "ms": b2_ms,
+        "plain_ms": b2_plain_ms,
+        "bound_ms": b2_bound_ms,
+        "bound_by": b2_bound_by,
+        "library_ms": b2_library_ms,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

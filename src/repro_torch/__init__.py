@@ -8,8 +8,12 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card, ``device=None`` raises. On the CPU each
 kernel's plain PyTorch version runs in its place.
 
-Ported so far: the device-residency packed path — ``GraphSession.run`` /
-``run_batch`` → the tile-sweep kernel (``kernels/csrc/packed_sweep.cu``).
+Ported so far, at device residency: the packed path — ``GraphSession.run``
+/ ``run_batch`` → the tile-sweep kernel (``kernels/csrc/packed_sweep.cu``)
+— and the per-block path (``execution="per_block"``: the SPU/DPU/MPU
+schedules and the fused strategy), with the sub-shard ToHub kernel
+(``kernels/csrc/dsss_spmv.cu``) behind ``GraphSession.kernel_operands`` and
+``repro_torch.kernels.ops.subshard_update``.
 """
 from repro_torch.core import (
     BFS,

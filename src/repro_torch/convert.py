@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dsss import DSSSGraph
+from repro_torch.device import resolve_device
 from repro_torch.graph.preprocess import EdgeList
 
 __all__ = ["edgelist_from_arrays", "dsss_from_arrays", "attrs_from_numpy", "aux_from_numpy"]
@@ -55,12 +56,16 @@ def dsss_from_arrays(fields: dict) -> DSSSGraph:
     return DSSSGraph(edgelist=el, **kw)
 
 
-def attrs_from_numpy(a, device: str | torch.device = "cpu", dtype=None) -> torch.Tensor:
-    """A numpy attribute array as a tensor on ``device`` (same bits)."""
+def attrs_from_numpy(a, device: str | torch.device | None = None, dtype=None) -> torch.Tensor:
+    """A numpy attribute array as a tensor on ``device`` (same bits).
+
+    ``device=None`` is the CUDA card and raises without one; pass ``"cpu"``.
+    """
     t = torch.from_numpy(np.array(a))
-    return t.to(device=device, dtype=dtype or t.dtype)
+    return t.to(device=resolve_device(device), dtype=dtype or t.dtype)
 
 
-def aux_from_numpy(aux: dict, device: str | torch.device = "cpu") -> dict:
-    """An aux dict of numpy arrays and scalars as tensors on ``device``."""
-    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in aux.items()}
+def aux_from_numpy(aux: dict, device: str | torch.device | None = None) -> dict:
+    """An aux dict of numpy arrays and scalars as tensors on ``device`` (``None``: CUDA)."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in aux.items()}

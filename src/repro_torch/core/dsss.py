@@ -7,7 +7,10 @@ edge buffer sorted by ``(i, j, dst, src)``. Hubs: each sub-shard's unique
 destinations (``hub_dst``) and the edge → hub slot map (``hub_inv``).
 
 Everything here is host-side numpy, array-for-array what the JAX package
-builds; the session uploads the :class:`PackedSweep` tile leaves once.
+builds: the :class:`PackedSweep` tile layout of the packed path, and the
+per-sub-shard views (:class:`SubShard`) and padded "shard files"
+(:meth:`DSSSGraph.host_blocks`) of the per-block path. The session
+uploads what a run needs once.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.graph.preprocess import EdgeList
 __all__ = [
     "DSSSGraph",
     "PackedSweep",
+    "SubShard",
     "build_dsss",
     "next_bucket",
     "choose_tile_edges",
@@ -86,6 +90,33 @@ def choose_tile_edges(run_lengths: np.ndarray) -> int:
         if best_slots is None or slots < best_slots:
             best_T, best_slots = T, slots
     return best_T
+
+
+@dataclasses.dataclass(frozen=True)
+class SubShard:
+    """A view of one sub-shard SS[i, j] (slices of the flat arrays).
+
+    ``src_local``/``dst_local`` are offsets within the source / destination
+    interval; ``hub_dst`` the sorted unique local destinations and
+    ``hub_inv`` each edge's hub slot.
+    """
+
+    i: int
+    j: int
+    src_local: np.ndarray  # int32 (e,)
+    dst_local: np.ndarray  # int32 (e,)
+    weights: np.ndarray | None  # float32 (e,) or None
+    hub_dst: np.ndarray  # int32 (u,)
+    hub_inv: np.ndarray  # int32 (e,)
+    src_sorted: bool = False  # True for the GraphChi-like baseline layout
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.src_local.shape[0])
+
+    @property
+    def num_unique_dst(self) -> int:
+        return int(self.hub_dst.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +215,72 @@ class DSSSGraph:
     @property
     def n_pad(self) -> int:
         return self.P * self.interval_size
+
+    def interval_bounds(self, i: int) -> tuple[int, int]:
+        lo = i * self.interval_size
+        return lo, min(lo + self.interval_size, self.n)
+
+    def subshard(self, i: int, j: int) -> SubShard:
+        lo = int(self.offsets[i, j])
+        hi = int(self.offsets[i, j + 1])
+        hlo = int(self.hub_offsets[i, j])
+        hhi = int(self.hub_offsets[i, j + 1])
+        isz = self.interval_size
+        return SubShard(
+            i=i,
+            j=j,
+            src_local=(self.src[lo:hi] - i * isz).astype(np.int32),
+            dst_local=(self.dst[lo:hi] - j * isz).astype(np.int32),
+            weights=None if self.weights is None else self.weights[lo:hi],
+            hub_dst=self.hub_dst_flat[hlo:hhi],
+            hub_inv=self.hub_inv_flat[lo:hi],
+            src_sorted=self.src_sorted,
+        )
+
+    def subshard_edge_count(self, i: int, j: int) -> int:
+        return int(self.offsets[i, j + 1] - self.offsets[i, j])
+
+    def padded_subshard(self, i: int, j: int) -> dict | None:
+        """SS[i, j] in the per-block path's "shard file" format, or ``None`` if empty.
+
+        Edge arrays padded with zeros to a power-of-two bucket, the hub
+        slot list to its own bucket: byte for byte the JAX package's
+        buffers (whose bucketing bounds its jit variants).
+        """
+        e = self.subshard_edge_count(i, j)
+        if e == 0:
+            return None
+        ss = self.subshard(i, j)
+        pad = next_bucket(e) - e
+        ub = next_bucket(max(ss.num_unique_dst, 1))
+        return {
+            "src_local": np.pad(ss.src_local, (0, pad)),
+            "dst_local": np.pad(ss.dst_local, (0, pad)),
+            "hub_inv": np.pad(ss.hub_inv, (0, pad)),
+            "hub_dst": np.pad(ss.hub_dst, (0, ub - ss.num_unique_dst)),
+            "e": e,
+            "u": ss.num_unique_dst,
+            "u_bucket": ub,
+            "weights": (
+                None
+                if ss.weights is None
+                else np.pad(ss.weights, (0, pad)).astype(np.float32)
+            ),
+        }
+
+    def host_blocks(self) -> dict[tuple[int, int], dict]:
+        """Every non-empty sub-shard's :meth:`padded_subshard`, keyed ``(i, j)``."""
+        blocks: dict[tuple[int, int], dict] = {}
+        for i in range(self.P):
+            for j in range(self.P):
+                blk = self.padded_subshard(i, j)
+                if blk is not None:
+                    blocks[(i, j)] = blk
+        return blocks
+
+    def total_edge_bytes(self, Be: int) -> int:
+        """Model bytes of the whole edge topology, ``m·Be``."""
+        return self.m * Be
 
     def density_matrix(self) -> np.ndarray:
         """(P, P) edge counts ``e`` per sub-shard."""

@@ -1,44 +1,55 @@
 """GraphSession — stage the graph once, run many plans (port of ``repro.core.session``).
 
-The device-residency, packed-kernel slice of the JAX package's session. A
-:class:`GraphSession` uploads the :class:`repro_torch.core.dsss.PackedSweep`
-tile layout to its device once and executes any number of
-:class:`repro_torch.core.plan.ExecutionPlan` jobs against it;
+The device-residency slice of the JAX package's session. A
+:class:`GraphSession` stages its graph on its device once and executes any
+number of :class:`repro_torch.core.plan.ExecutionPlan` jobs against it;
 ``run_batch`` fuses K compatible plans into one sweep sequence whose
 tensors carry a leading ``(K,)`` query axis.
 
-Each update sweep (:func:`_iteration_packed`) does four things, for SPU,
-DPU and MPU alike: the per-query globals (``program.pre_iteration``), one
-⊕-accumulator init, the tile sweep
-(:func:`repro_torch.kernels.packed_sweep.packed_sweep_update` — the CUDA
-kernel on the card, its plain version on the CPU) and one batched apply
-(``_apply_all_impl``). The numeric pass is the same for every strategy,
-because the tile order folds each destination's runs in ascending source
-interval, the fold order of every schedule; the strategies differ in the
-slow-tier traffic the paper models, which ``_charge_packed_*`` charge to
-:class:`Meters` from the layout's metadata, field for field as the JAX
-package does.
+Two execution paths, the ``execution`` axis:
 
-Selective execution: monotone programs under ``activity="auto"`` sweep
-only the tiles whose source intervals changed in the previous sweep, as
-an ascending tile-index list handed to the kernel; results are
-bit-identical to full sweeps.
+* ``"packed_kernel"`` (and ``"auto"``, which resolves to it for SPU, DPU
+  and MPU): each update sweep (:func:`_iteration_packed`) computes the
+  per-query globals, one ⊕-accumulator init, the tile sweep over the
+  :class:`repro_torch.core.dsss.PackedSweep` layout
+  (:func:`repro_torch.kernels.packed_sweep.packed_sweep_update` — the CUDA
+  kernel on the card, its plain version on the CPU) and one batched apply.
+  The numeric pass is the same for every strategy, because the tile order
+  folds each destination's runs in ascending source interval, the fold
+  order of every schedule; the strategies differ in the slow-tier traffic
+  the paper models, which ``_charge_packed_*`` charge to :class:`Meters`
+  from the layout's metadata.
+* ``"per_block"``: the paper's own schedules, one sub-shard at a time —
+  SPU (Algorithm 5, :func:`_iteration_spu`), DPU and MPU (Algorithms 6
+  and 7, :func:`_iteration_two_phase`) with their hubs — over the padded
+  "shard files" (:meth:`DSSSGraph.host_blocks`), uploaded once and handed
+  out by :class:`_BlockFetcher`, which charges the edge bytes. The
+  ``"fused"`` strategy (:func:`_iteration_fused`, one whole-graph
+  gather-reduce per sweep) always runs here. The block primitives are
+  plain PyTorch: float sums are left folds in edge order
+  (``torch.segment_reduce`` over ``(e, K)`` data, which folds each segment
+  in order on the CPU and on CUDA), never atomics, so per-block and
+  packed runs of SPU/DPU/MPU give the same bits.
+
+Selective execution: monotone programs under ``activity="auto"`` skip the
+source intervals (per-block) or tiles (packed) that did not change in the
+previous sweep; results are bit-identical to full sweeps.
 
 Not ported yet, and refused with :class:`NotImplementedError` naming the
-ROADMAP item: host and disk residency, the ``"packed"`` (plain scan) and
-``"per_block"`` execution paths, and the ``"fused"`` strategy.
+ROADMAP item: host and disk residency, the ``"packed"`` (plain scan)
+execution path and :meth:`GraphSession.register_strategy`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch.core.dsss import DSSSGraph, active_tile_mask, tile_source_spans
-from repro_torch.core.identities import reduce_identity
+from repro_torch.core.identities import reduce_identity, segment_fill_value
 from repro_torch.core.iomodel import (
     IOParams,
     StrategyChoice,
@@ -48,7 +59,12 @@ from repro_torch.core.iomodel import (
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.vertex_programs import VertexProgram
 from repro_torch.device import resolve_device
-from repro_torch.kernels.packed_sweep import packed_sweep_update, prepare_packed_tiles
+from repro_torch.kernels.ops import prepare_from_host_block
+from repro_torch.kernels.packed_sweep import (
+    _edge_aux,
+    packed_sweep_update,
+    prepare_packed_tiles,
+)
 
 __all__ = [
     "GraphSession",
@@ -76,9 +92,10 @@ MODEL_METER_FIELDS = (
 _NOT_PORTED = {
     "host": "residency='host' is not ported yet (ROADMAP A8)",
     "disk": "residency='disk' is not ported yet (ROADMAP A9)",
-    "packed": "execution='packed' is not ported yet (ROADMAP A4)",
-    "per_block": "execution='per_block' is not ported yet (ROADMAP A8)",
-    "fused": "strategy='fused' is not ported yet (ROADMAP A8)",
+    "packed": "execution='packed' (the plain tile scan as its own path) is "
+    "not ported yet (ROADMAP A4)",
+    "register_strategy": "GraphSession.register_strategy and the baseline "
+    "schedules of core/baselines.py are not ported yet (ROADMAP A5)",
 }
 
 
@@ -182,9 +199,11 @@ class _RunContext:
     resident: frozenset
     params: IOParams
     aux: dict
+    aux_views: list[dict]  # all P interval views of aux, sliced once per run
     valid: torch.Tensor  # (P, isz) bool
     tol: torch.Tensor
     K: int
+    fetcher: "_BlockFetcher" = None  # type: ignore[assignment]
     activity: str = "off"
     aux_batched: bool = False
 
@@ -230,6 +249,374 @@ def _apply_all_impl(
     new = torch.where(valid, new, old)
     changed = (program.changed(old, new, tol) & valid).any(dim=-1)
     return new, changed
+
+
+# ---------------------------------------------------------------------------
+# Block primitives of the per-block path, batched over the leading (K,)
+# query axis. Block index arrays are query-invariant; attributes and
+# accumulators carry K; aux interval views are shared (vertex leaves
+# (isz,), scalars 0-d) or, with ``aux_batched``, carry their own leading K.
+# A block holds only its e real edges (see _device_block), so no edge needs
+# masking to the ⊕-identity as the JAX package's bucket padding does.
+# ---------------------------------------------------------------------------
+def _pre_iteration(program: VertexProgram, attrs_flat, aux: dict):
+    """Per-query iteration globals (e.g. PageRank's dangling mass), (K,) leaves.
+
+    The programs reduce over the last axis, so shared ``(n_pad,)`` and
+    batched ``(K, n_pad)`` aux leaves both broadcast against ``(K, n_pad)``.
+    """
+    return program.pre_iteration(attrs_flat, aux)
+
+
+def _edge_contrib(program, prev_src, src_view, dst_view, blk, has_weights, aux_batched):
+    """(K, e) gather contributions of one block's edges, in edge order."""
+    src = blk["src_local"]
+    vals = prev_src.index_select(-1, src)
+    d_aux = (
+        _edge_aux(dst_view, aux_batched, blk["dst_local"])
+        if program.needs_dst_aux
+        else None
+    )
+    return program.gather(
+        vals, blk["weights"] if has_weights else None,
+        _edge_aux(src_view, aux_batched, src), d_aux,
+    )
+
+
+def _ordered_reduce(
+    contrib: torch.Tensor,  # (K, e)
+    reduce: str,
+    index: torch.Tensor,  # (e,) output column of each edge
+    size: int,
+    fill,
+    lengths: torch.Tensor,  # (size,) edges per output column
+    order: torch.Tensor | None = None,  # stable sort of the edges by index
+) -> torch.Tensor:
+    """(K, size) ⊕ of the edges grouped by ``index``; the one reduction
+    policy of the per-block and fused paths.
+
+    A float sum is a left fold from 0 in edge order: ``segment_reduce``
+    over ``(e, K)`` data folds each segment sequentially (its 1-D form does
+    not on CUDA), on edges grouped by column, already or through ``order``.
+    Never ``index_add_``/``scatter_add_``, whose atomics fold in any order.
+    min/max, and sums of integers, are exact in any order and scatter into
+    ``fill``.
+    """
+    if reduce == "sum" and contrib.dtype.is_floating_point:
+        if order is not None:
+            contrib = contrib.index_select(1, order)
+        return torch.segment_reduce(contrib.T, "sum", lengths=lengths, axis=0, unsafe=True).T
+    K = contrib.shape[0]
+    out = torch.full((K, size), fill, dtype=contrib.dtype, device=contrib.device)
+    how = {"sum": "sum", "min": "amin", "max": "amax"}[reduce]
+    return out.scatter_reduce_(1, index.expand(K, -1), contrib, how)
+
+
+def _hub_fold(program, contrib: torch.Tensor, blk: dict) -> torch.Tensor:
+    """(K, u) ⊕ of each hub slot's edges (one slot per block destination)."""
+    return _ordered_reduce(
+        contrib, program.reduce, blk["hub_inv"], blk["u"],
+        reduce_identity(program.reduce, contrib.dtype).item(),
+        blk["seg_lengths"], blk["seg_order"],
+    )
+
+
+def _block_from_hub(program, acc: torch.Tensor, hub_dst: torch.Tensor, partial: torch.Tensor):
+    """FromHub (paper Alg. 6 line 11): fold one hub into ``acc``, in place.
+
+    ``hub_dst`` holds distinct destinations, so the write is conflict-free.
+    Only the hub's destinations are touched: elsewhere the JAX package adds
+    the identity, which leaves an accumulator that started at ``+0.0``
+    bitwise unchanged.
+    """
+    cur = acc.index_select(1, hub_dst)
+    p = partial.to(acc.dtype)
+    if program.reduce == "sum":
+        new = cur + p
+    elif program.reduce == "min":
+        new = torch.minimum(cur, p)
+    else:
+        new = torch.maximum(cur, p)
+    return acc.index_copy_(1, hub_dst, new)
+
+
+def _block_to_hub(program, prev_src, src_view, dst_view, blk, has_weights, aux_batched=False):
+    """ToHub (paper Alg. 6 line 4): partial ⊕ per unique destination, (K, u)."""
+    contrib = _edge_contrib(program, prev_src, src_view, dst_view, blk, has_weights, aux_batched)
+    return _hub_fold(program, contrib, blk)
+
+
+def _block_gather_reduce(
+    program, prev_src, src_view, dst_view, blk, acc, has_weights, aux_batched=False
+):
+    """UpdateInMemory: fold one block's edges into the (K, isz) ``acc``, in place.
+
+    The destination-grouped fold of the JAX package's ``segment_*``
+    followed by ``acc ⊕ red``: a block's hub partials are its direct
+    partials, since destination sorting gives both the same fold order.
+    """
+    partial = _block_to_hub(program, prev_src, src_view, dst_view, blk, has_weights, aux_batched)
+    return _block_from_hub(program, acc, blk["hub_dst"], partial)
+
+
+def _apply_interval(
+    program: VertexProgram,
+    old: torch.Tensor,  # (K, isz)
+    acc: torch.Tensor,  # (K, isz)
+    aux_view: dict,  # the interval's aux view
+    globals_: dict,  # (K,) leaves
+    valid: torch.Tensor,  # (isz,) bool
+    tol: torch.Tensor,
+    aux_batched: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One interval's apply for all K queries: new attrs and (K,) changed."""
+    aux2 = {
+        k: (v.reshape(-1, 1) if aux_batched and v.ndim == 1 else v)
+        for k, v in aux_view.items()
+    }
+    gl = {k: v.reshape(-1, 1) for k, v in globals_.items()}
+    new = program.apply(old, acc, aux2, gl)
+    new = torch.where(valid, new, old)
+    changed = (program.changed(old, new, tol) & valid).any(dim=-1)
+    return new, changed
+
+
+def _fused_iteration(
+    program: VertexProgram,
+    attrs: torch.Tensor,  # (K, n_pad)
+    aux: dict,
+    fused: dict,  # GraphSession.fused_arrays()
+    valid: torch.Tensor,  # (P, isz) bool
+    tol: torch.Tensor,
+    has_weights: bool,
+    aux_batched: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One whole-graph gather-reduce and apply; returns new attrs and (K, P) changed.
+
+    The staged edges are stably sorted by destination, so a float sum folds
+    each destination's edges in the flat DSSS order from 0, as the JAX
+    package's ``segment_sum`` does.
+    """
+    K, n_pad = attrs.shape
+    P, isz = valid.shape
+    globals_ = _pre_iteration(program, attrs, aux)
+    src, dst = fused["src"], fused["dst"]
+    contrib = program.gather(
+        attrs.index_select(1, src),
+        fused["weights"] if has_weights else None,
+        _edge_aux(aux, aux_batched, src),
+        _edge_aux(aux, aux_batched, dst) if program.needs_dst_aux else None,
+    )
+    red = _ordered_reduce(
+        contrib, program.reduce, dst, n_pad,
+        segment_fill_value(program.reduce, contrib.dtype).item(), fused["lengths"],
+    )
+    red = red.to(attrs.dtype).reshape(K, P, isz)
+    new, changed = _apply_all_impl(
+        program, attrs.reshape(K, P, isz), red, aux, globals_, valid, tol, aux_batched
+    )
+    return new, changed
+
+
+# ---------------------------------------------------------------------------
+# Per-block schedules (paper §III-B). Each takes (ctx, attrs (K, P, isz),
+# active (K, P) numpy, meters) and returns the new attrs and the (K, P)
+# numpy map of changed intervals.
+# ---------------------------------------------------------------------------
+def _new_accumulators(ctx: _RunContext) -> list[torch.Tensor]:
+    prog, g = ctx.program, ctx.session.graph
+    ident = reduce_identity(prog.reduce, prog.dtype).item()
+    return [
+        torch.full((ctx.K, g.interval_size), ident, dtype=prog.dtype, device=ctx.session.device)
+        for _ in range(g.P)
+    ]
+
+
+def _changed_map(ctx: _RunContext, changed: dict[int, torch.Tensor]) -> np.ndarray:
+    """(K, P) numpy map from the applied intervals' (K,) flags, one transfer."""
+    active_next = np.zeros((ctx.K, ctx.session.graph.P), dtype=bool)
+    if changed:
+        cols = list(changed)
+        active_next[:, cols] = torch.stack([changed[j] for j in cols], dim=1).cpu().numpy()
+    return active_next
+
+
+def _iteration_spu(ctx: _RunContext, attrs, active, meters: Meters):
+    """Paper Algorithm 5: row-major, all intervals ping-pong resident."""
+    sess, prog = ctx.session, ctx.program
+    g = sess.graph
+    K = ctx.K
+    globals_ = _pre_iteration(prog, attrs.reshape(K, -1), ctx.aux)
+    acc = _new_accumulators(ctx)
+    touched = [False] * g.P
+    rows = _rows_to_process(ctx, active)
+    order = [(i, j) for i in rows for j in range(g.P) if (i, j) in ctx.block_keys]
+    fetch = ctx.fetcher.begin(order)
+    for i, j in order:
+        blk = fetch()
+        acc[j] = _block_gather_reduce(
+            prog, attrs[:, i], ctx.aux_views[i],
+            ctx.aux_views[j] if prog.needs_dst_aux else {},
+            blk, acc[j], sess.has_weights, ctx.aux_batched,
+        )
+        touched[j] = True
+        meters.blocks_processed += 1
+        meters.edges_processed += blk["e"]
+    meters.blocks_skipped += (g.P - len(rows)) * g.P
+    new_cols = []
+    changed = {}
+    for j in range(g.P):
+        if not touched[j] and prog.monotone:
+            new_cols.append(attrs[:, j])
+            continue
+        new_j, changed[j] = _apply_interval(
+            prog, attrs[:, j], acc[j], ctx.aux_views[j], globals_,
+            ctx.valid[j], ctx.tol, ctx.aux_batched,
+        )
+        new_cols.append(new_j)
+    return torch.stack(new_cols, dim=1), _changed_map(ctx, changed)
+
+
+def _iteration_two_phase(ctx: _RunContext, attrs, active, meters: Meters, Q: int):
+    """Paper Algorithms 6 (Q=0: DPU) and 7 (0<Q<P: MPU).
+
+    Intervals < Q are ping-pong resident (SPU-like); intervals >= Q are
+    cold: their contributions route through hubs and they are loaded and
+    saved once per sweep. Interval and hub bytes are charged per query
+    (K×); the edge stream is shared.
+    """
+    sess, prog = ctx.session, ctx.program
+    g = sess.graph
+    K = ctx.K
+    globals_ = _pre_iteration(prog, attrs.reshape(K, -1), ctx.aux)
+    acc = _new_accumulators(ctx)
+    touched = [False] * g.P
+    # Hub state between the phases: (partial, hub_dst, u). Phase 2 never
+    # re-touches an edge block: each sub-shard is fetched once per sweep.
+    hubs: dict[tuple[int, int], tuple] = {}
+    rows = _rows_to_process(ctx, active)
+    iv_bytes = g.interval_size * ctx.params.Ba * K
+    hub_bytes = ctx.params.Ba + sess.Bv
+
+    # Every sub-shard is visited once: (j < Q or i >= Q) blocks in the
+    # row-major phase, deferred (i < Q, j >= Q) blocks in the column phase.
+    phase1 = [
+        (i, j)
+        for i in rows
+        for j in range(g.P)
+        if (j < Q or i >= Q) and (i, j) in ctx.block_keys
+    ]
+    phase2 = [
+        (i, j)
+        for j in range(g.P)
+        if j >= Q
+        for i in rows
+        if i < Q and (i, j) in ctx.block_keys
+    ]
+    fetch = ctx.fetcher.begin(phase1 + phase2)
+
+    def _direct(i: int, j: int, blk: dict) -> None:
+        """UpdateInMemory (paper Alg. 7 lines 4, 10, 20)."""
+        acc[j] = _block_gather_reduce(
+            prog, attrs[:, i], ctx.aux_views[i],
+            ctx.aux_views[j] if prog.needs_dst_aux else {},
+            blk, acc[j], sess.has_weights, ctx.aux_batched,
+        )
+        touched[j] = True
+        meters.blocks_processed += 1
+        meters.edges_processed += blk["e"]
+
+    # Phase 1 (row-major): resident rows update resident destinations; cold
+    # rows (i >= Q) are loaded once, updating resident destinations
+    # directly and cold ones via ToHub. Blocks (i < Q, j >= Q) wait for the
+    # column phase, so only one cold accumulator is ever live.
+    for i in rows:
+        if i >= Q:
+            meters.bytes_read_intervals += iv_bytes  # LoadFromDisk(I_i)
+        for j in range(g.P):
+            if (i, j) not in ctx.block_keys or not (j < Q or i >= Q):
+                continue
+            blk = fetch()
+            if j < Q:
+                _direct(i, j, blk)
+            else:
+                partial = _block_to_hub(
+                    prog, attrs[:, i], ctx.aux_views[i],
+                    ctx.aux_views[j] if prog.needs_dst_aux else {},
+                    blk, sess.has_weights, ctx.aux_batched,
+                )
+                hubs[(i, j)] = (partial, blk["hub_dst"], blk["u"])
+                touched[j] = True
+                meters.bytes_written_hubs += blk["u"] * hub_bytes * K
+                meters.blocks_processed += 1
+                meters.edges_processed += blk["e"]
+    meters.blocks_skipped += (g.P - len(rows)) * g.P
+
+    # Phase 2 (column-major): resident columns apply directly; cold columns
+    # first take the deferred resident-source blocks, then fold their hubs
+    # in ascending source interval, then save (Alg. 6 lines 8-14).
+    new_cols: list = [None] * g.P
+    changed = {}
+    for j in range(g.P):
+        if j >= Q:
+            for i in rows:
+                if i < Q and (i, j) in ctx.block_keys:
+                    _direct(i, j, fetch())
+            for i in rows:
+                h = hubs.get((i, j))
+                if h is None:
+                    continue
+                partial, hub_dst, u = h
+                acc[j] = _block_from_hub(prog, acc[j], hub_dst, partial)
+                meters.bytes_read_hubs += u * hub_bytes * K
+        if not touched[j] and prog.monotone:
+            new_cols[j] = attrs[:, j]
+            continue
+        if j >= Q and prog.monotone:
+            # A monotone apply needs the cold interval's previous attributes:
+            # one interval read more than the paper's PageRank accounting.
+            meters.bytes_read_intervals += iv_bytes
+        new_cols[j], changed[j] = _apply_interval(
+            prog, attrs[:, j], acc[j], ctx.aux_views[j], globals_,
+            ctx.valid[j], ctx.tol, ctx.aux_batched,
+        )
+        if j >= Q:
+            meters.bytes_written_intervals += iv_bytes  # SaveToDisk(I_j)
+    return torch.stack(new_cols, dim=1), _changed_map(ctx, changed)
+
+
+def _iteration_dpu(ctx, attrs, active, meters):
+    return _iteration_two_phase(ctx, attrs, active, meters, Q=0)
+
+
+def _iteration_mpu(ctx, attrs, active, meters):
+    return _iteration_two_phase(ctx, attrs, active, meters, Q=ctx.choice.Q)
+
+
+def _iteration_fused(ctx: _RunContext, attrs, active, meters: Meters):
+    """One whole-graph gather-reduce per sweep (every interval, every sweep).
+
+    Equal to SPU up to float-sum association: it folds each destination's
+    edges in one run where SPU folds per sub-shard first.
+    """
+    sess, prog = ctx.session, ctx.program
+    g = sess.graph
+    K = ctx.K
+    new, changed = _fused_iteration(
+        prog, attrs.reshape(K, -1), ctx.aux, sess.fused_arrays(), ctx.valid,
+        ctx.tol, sess.has_weights, ctx.aux_batched,
+    )
+    meters.blocks_processed += len(sess.block_keys)
+    meters.edges_processed += g.m
+    return new, changed.cpu().numpy()
+
+
+_STRATEGIES = {
+    "spu": _iteration_spu,
+    "dpu": _iteration_dpu,
+    "mpu": _iteration_mpu,
+    "fused": _iteration_fused,
+}
 
 
 def _charge_packed_spu(ctx: _RunContext, rows: list[int], meters: Meters) -> None:
@@ -349,9 +736,7 @@ def _iteration_packed(ctx: _RunContext, attrs, active, meters: Meters):
             ctx, rows, meters, Q=0 if strategy == "dpu" else ctx.choice.Q
         )
     attrs_flat = attrs.reshape(K, g.n_pad)
-    # The JAX package's _pre_iteration vmaps over queries; the programs'
-    # pre_iteration already reduces over the last axis, giving (K,) leaves.
-    globals_ = prog.pre_iteration(attrs_flat, ctx.aux)
+    globals_ = _pre_iteration(prog, attrs_flat, ctx.aux)
     ident = reduce_identity(prog.reduce, prog.dtype)
     acc = torch.full((K, g.n_pad), ident.item(), dtype=prog.dtype, device=sess.device)
     row_mask = np.zeros(g.P, dtype=bool)
@@ -400,12 +785,60 @@ def _batch_aux(prog: VertexProgram, g, kwargs_list: list[dict]) -> tuple[dict, b
     return {k: torch.stack([a[k] for a in aux_list]) for k in aux0}, True
 
 
+def _device_block(host: dict, device: torch.device) -> dict:
+    """Upload one padded host block (a "shard file") to ``device``.
+
+    Only the ``e`` real edges and ``u`` hub slots go up: the port runs
+    eagerly, so the bucket padding that bounds the JAX package's jit
+    variants buys nothing here. Index leaves are int64, as PyTorch's
+    scatters want. The block's hub run index rides along: ``seg_lengths``,
+    the edges of each hub slot, and ``seg_order``, a stable sort of the
+    edges by slot where they are not already grouped (``src_sorted``
+    layouts), ``None`` otherwise.
+    """
+    e, u = host["e"], host["u"]
+    hub_inv = host["hub_inv"][:e]
+    grouped = bool(np.all(hub_inv[1:] >= hub_inv[:-1]))
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
+
+    return {
+        "src_local": up(host["src_local"][:e]),
+        "dst_local": up(host["dst_local"][:e]),
+        "hub_inv": up(hub_inv),
+        "hub_dst": up(host["hub_dst"][:u]),
+        "seg_lengths": up(np.bincount(hub_inv, minlength=u)),
+        "seg_order": None if grouped else up(np.argsort(hub_inv, kind="stable")),
+        "e": e,
+        "u": u,
+        "weights": (
+            None
+            if host["weights"] is None
+            else torch.from_numpy(np.ascontiguousarray(host["weights"][:e])).to(device)
+        ),
+    }
+
+
+def _host_block_nbytes(host: dict) -> int:
+    """Raw bytes of one padded host block's arrays."""
+    total = 0
+    for name in ("src_local", "dst_local", "hub_inv", "hub_dst", "weights"):
+        arr = host.get(name)
+        if arr is not None:
+            total += arr.nbytes
+    return total
+
+
 class _StagedGraph:
     """Staged state that is a pure function of the graph.
 
-    Per-sub-shard edge and hub counts (the meters' metadata), and, per
-    packing mode, the host :class:`PackedSweep`, its per-tile source spans
-    and its device tiles (uploaded once per device).
+    Per-sub-shard edge and hub counts (the meters' metadata); the padded
+    host blocks of the per-block path, built at first use so a session that
+    only runs packed sweeps never pays for them; per device, their upload
+    (:meth:`device_blocks`), the fused path's edge arrays and the staged
+    kernel operands; and, per packing mode, the host :class:`PackedSweep`,
+    its per-tile source spans and its device tiles.
     """
 
     def __init__(self, graph: DSSSGraph):
@@ -415,9 +848,31 @@ class _StagedGraph:
         self.block_keys = frozenset(
             (int(i), int(j)) for i, j in zip(*np.nonzero(self.block_e))
         )
+        self._host_blocks: dict[tuple[int, int], dict] | None = None
+        self._device_blocks: dict[torch.device, dict] = {}
         self._packed_host: dict[str, Any] = {}
         self._packed_tiles: dict[tuple[str, torch.device], dict] = {}
         self._packed_spans: dict[str, tuple] = {}
+        self.fused: dict[torch.device, dict] = {}
+        self.kernel_operands: dict[tuple, tuple] = {}
+
+    @property
+    def host_blocks(self) -> dict[tuple[int, int], dict]:
+        """The padded numpy "shard files", built once at first use."""
+        if self._host_blocks is None:
+            self._host_blocks = self.graph.host_blocks()
+        return self._host_blocks
+
+    def device_blocks(self, device: torch.device) -> dict[tuple[int, int], dict]:
+        """Every host block uploaded to ``device``, once per device."""
+        blocks = self._device_blocks.get(device)
+        if blocks is None:
+            blocks = {
+                key: _device_block(host, device)
+                for key, host in self.host_blocks.items()
+            }
+            self._device_blocks[device] = blocks
+        return blocks
 
     def packed_host(self, mode: str):
         """The host-side :class:`PackedSweep`, built once per mode."""
@@ -446,21 +901,66 @@ class _StagedGraph:
         return spans
 
 
+class _BlockFetcher:
+    """Per-run edge-block access layer: blocks in each sweep's declared order.
+
+    Every per-block schedule obtains its sub-shard blocks through this
+    object, so edge bytes are charged where the data would move: at device
+    residency the blocks come from the staged device mirror, and a fetch of
+    a key outside the resident set charges ``e·Be`` model bytes (the
+    simulated slow tier). The whole topology is on the device, so the
+    high-water mark is reported once, up front. Host and disk streaming
+    (double-buffered H2D, mmap fetches) are not ported yet.
+    """
+
+    def __init__(self, session: "GraphSession", compiled: CompiledPlan, meters: Meters):
+        if compiled.residency != "device":
+            raise NotImplementedError(
+                f"block streaming at residency={compiled.residency!r} is not "
+                "ported yet (ROADMAP A7-A9)"
+            )
+        self._session = session
+        self._resident = compiled.resident
+        self._meters = meters
+        self._order: list[tuple[int, int]] = []
+        self._pos = 0
+        e_blk = session._staged.block_e
+        self._model_bytes = {k: int(e_blk[k]) * session.Be for k in session.block_keys}
+        meters.peak_device_graph_bytes = max(
+            meters.peak_device_graph_bytes, float(sum(self._model_bytes.values()))
+        )
+
+    def begin(self, order: list[tuple[int, int]]) -> Callable[[], dict]:
+        """Declare this sweep's block order; returns the sequential fetch."""
+        self._order = order
+        self._pos = 0
+        return self._next
+
+    def _next(self) -> dict:
+        key = self._order[self._pos]
+        self._pos += 1
+        if key not in self._resident:
+            self._meters.bytes_read_edges += self._model_bytes[key]
+        return self._session._staged.device_blocks(self._session.device)[key]
+
+
 class GraphSession:
     """Staged graph state shared by every run.
 
     Args:
       graph: sharded :class:`DSSSGraph`.
-      device: where the tiles and attributes live. ``None`` means CUDA,
+      device: where the staged graph and attributes live. ``None`` means CUDA,
         and raises when no CUDA device is present; pass ``"cpu"`` to run
         the plain versions of the kernels on the CPU.
       memory_budget: bytes of fast-tier memory (B_M); ``None`` = unlimited.
         It sets the SPU/DPU/MPU choice and the modelled meters.
-      residency: ``"device"`` — the tile layout is uploaded once — or
+      residency: ``"device"`` — what a run needs is uploaded once — or
         ``"auto"``, which means ``"host"`` when a ``memory_budget`` is set
         (not ported yet) and ``"device"`` otherwise.
-      execution: ``"packed_kernel"`` or ``"auto"`` (the same): every sweep
-        runs the tile-sweep kernel.
+      execution: ``"packed_kernel"`` (every sweep runs the tile-sweep
+        kernel), ``"per_block"`` (the paper's schedules, one sub-shard at a
+        time) or ``"auto"`` (packed_kernel). The ``"fused"`` strategy runs
+        per-block whatever is asked.
       packing: ``"adaptive"``, ``"subshard"`` or ``"auto"`` (subshard for
         ``src_sorted`` graphs, adaptive otherwise).
       Be: bytes per edge in the I/O model (+4 for weighted graphs).
@@ -481,7 +981,7 @@ class GraphSession:
     ):
         _check_axis("residency", residency, ("device", "auto"), ("host", "disk"))
         _check_axis(
-            "execution", execution, ("packed_kernel", "auto"), ("packed", "per_block")
+            "execution", execution, ("packed_kernel", "per_block", "auto"), ("packed",)
         )
         if packing not in ("adaptive", "subshard", "auto"):
             raise ValueError(
@@ -513,6 +1013,21 @@ class GraphSession:
         """Keys of the non-empty sub-shards."""
         return self._staged.block_keys
 
+    @property
+    def host_blocks(self) -> dict[tuple[int, int], dict]:
+        """The padded numpy "shard files" (built at first use, never uploaded)."""
+        return self._staged.host_blocks
+
+    @property
+    def blocks(self) -> dict[tuple[int, int], dict]:
+        """The per-block path's device blocks (uploaded once)."""
+        self.resolved_residency()
+        return self._staged.device_blocks(self.device)
+
+    def staged_host_bytes(self) -> int:
+        """Raw host bytes of the padded host blocks (building them if needed)."""
+        return int(sum(_host_block_nbytes(b) for b in self.host_blocks.values()))
+
     def resolved_residency(self, override: str | None = None) -> str:
         """Resolve the residency axis; only ``"device"`` is ported."""
         mode = override or self.residency
@@ -523,15 +1038,84 @@ class GraphSession:
         return mode
 
     def resolved_execution(self, strategy: str, override: str | None = None) -> str:
-        """Resolve the execution axis; only ``"packed_kernel"`` is ported."""
-        if strategy not in ("spu", "dpu", "mpu"):
-            raise NotImplementedError(_NOT_PORTED.get(strategy, strategy))
+        """Resolve the execution axis to ``"packed_kernel"`` or ``"per_block"``.
+
+        ``strategy`` is resolved (not ``"auto"``). The packed path applies
+        to the SPU/DPU/MPU schedules; ``"fused"`` runs per-block even when
+        a packed mode was asked for (results and meters are the same
+        either way). ``"auto"`` is the kernel: the card plays the TPU's
+        role here.
+        """
         mode = override or self.execution
+        if strategy not in ("spu", "dpu", "mpu"):
+            return "per_block"
         if mode == "auto":
             mode = "packed_kernel"
-        if mode != "packed_kernel":
-            raise NotImplementedError(_NOT_PORTED.get(mode, mode))
+        if mode == "packed":
+            raise NotImplementedError(_NOT_PORTED["packed"])
         return mode
+
+    @classmethod
+    def register_strategy(cls, name: str, iteration_fn: Callable) -> None:
+        """Custom per-iteration schedules (the JAX package's baselines): not ported."""
+        raise NotImplementedError(_NOT_PORTED["register_strategy"])
+
+    def fused_arrays(self) -> dict:
+        """The fused path's whole-graph edge arrays, staged once per device.
+
+        ``src``/``dst`` (int64) and ``weights`` in the flat DSSS order,
+        stably sorted by destination, and ``lengths``, each destination's
+        in-edge count over ``n_pad``: a float sum then folds every
+        destination's edges in flat order.
+        """
+        fused = self._staged.fused.get(self.device)
+        if fused is None:
+            g = self.graph
+            order = np.argsort(g.dst, kind="stable")
+            dst = g.dst[order]
+
+            def up(a, dtype):
+                return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
+
+            fused = {
+                "src": up(g.src[order], np.int64),
+                "dst": up(dst, np.int64),
+                "weights": None if g.weights is None else up(g.weights[order], np.float32),
+                "lengths": up(np.bincount(dst, minlength=g.n_pad), np.int64),
+            }
+            self._staged.fused[self.device] = fused
+        return fused
+
+    def kernel_operands(
+        self, i: int, j: int, dtype: torch.dtype, *, gather_op: str = "mul", reduce: str = "sum"
+    ) -> tuple:
+        """Sub-shard kernel operands of SS[i, j] on the session's device.
+
+        ``(src_idx, hub_inv, weights, block_base)`` as
+        :func:`repro_torch.kernels.ops.prepare_subshard_operands` stages
+        them, from the host block, once per (sub-shard, dtype, semiring).
+        Pass them to :func:`repro_torch.kernels.ops.subshard_update` with
+        the source interval's values and ``u`` hub slots.
+        """
+        key = (i, j, str(dtype), gather_op, reduce, self.device)
+        ops = self._staged.kernel_operands.get(key)
+        if ops is None:
+            ops = prepare_from_host_block(
+                self.host_blocks[(i, j)], dtype, gather_op=gather_op,
+                reduce=reduce, device=self.device,
+            )
+            self._staged.kernel_operands[key] = ops
+        return ops
+
+    def _interval_aux(self, aux: dict, k: int, batched: bool = False) -> dict:
+        """Interval k's view of the aux dict (vertex leaves sliced, scalars as is)."""
+        isz = self.graph.interval_size
+        lo, hi = k * isz, (k + 1) * isz
+        vertex_ndim = 2 if batched else 1
+        return {
+            key: (v[..., lo:hi] if v.ndim == vertex_ndim else v)
+            for key, v in aux.items()
+        }
 
     def _packed_tile_activity(self, row_active: np.ndarray) -> np.ndarray:
         """(NT,) bool: tiles holding an edge of an active source interval."""
@@ -664,10 +1248,12 @@ class GraphSession:
         aux, aux_batched = _batch_aux(prog, g, kwargs_list)
         aux = {k: v.to(dev) for k, v in aux.items()}
         meters = Meters()
-        # Device residency: the whole topology is on the device.
-        meters.peak_device_graph_bytes = float(
-            sum(int(self._staged.block_e[k]) for k in self.block_keys) * self.Be
-        )
+        fetcher = _BlockFetcher(self, compiled, meters)
+        if compiled.choice.strategy == "fused":
+            # The fused path holds the whole edge list on the device.
+            meters.peak_device_graph_bytes = max(
+                meters.peak_device_graph_bytes, float(g.m * self.Be)
+            )
         ctx = _RunContext(
             session=self,
             program=prog,
@@ -675,12 +1261,18 @@ class GraphSession:
             resident=compiled.resident,
             params=compiled.params,
             aux=aux,
+            aux_views=[self._interval_aux(aux, k, aux_batched) for k in range(g.P)],
             valid=(torch.arange(g.n_pad, device=dev) < g.n).reshape(g.P, isz),
             tol=torch.tensor(plan.tol, dtype=torch.float32, device=dev),
             K=K,
+            fetcher=fetcher,
             activity=compiled.activity,
             aux_batched=aux_batched,
         )
+        if compiled.execution == "packed_kernel":
+            iteration = _iteration_packed
+        else:
+            iteration = _STRATEGIES[compiled.choice.strategy]
         converged_at: list[int | None] = [
             0 if not active[m].any() else None for m in range(K)
         ]
@@ -695,7 +1287,7 @@ class GraphSession:
                 activity_log.append(active.any(axis=0).copy())
             else:
                 activity_log.append(np.ones(g.P, dtype=bool))
-            attrs, active = _iteration_packed(ctx, attrs, active, meters)
+            attrs, active = iteration(ctx, attrs, active, meters)
             sweeps += 1
             meters.iterations += 1
             for m in range(K):

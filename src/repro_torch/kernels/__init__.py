@@ -3,14 +3,24 @@
 - :mod:`repro_torch.kernels.packed_sweep` — the fused tile sweep
   (``csrc/packed_sweep.cu``), counterpart of the JAX package's Pallas
   ``repro.kernels.packed_sweep``.
+- :mod:`repro_torch.kernels.dsss_spmv` — the sub-shard ToHub update
+  (``csrc/dsss_spmv.cu``), counterpart of ``repro.kernels.dsss_spmv``;
+  :mod:`repro_torch.kernels.ops` stages its operands.
 
 Kernels are built from ``csrc/`` at first use (:mod:`._build`); importing
 this package builds nothing.
 """
+from repro_torch.kernels.dsss_spmv import dsss_spmv_block_partials, subshard_update
 from repro_torch.kernels.packed_sweep import (
     packed_sweep_update,
     packed_sweep_update_ref,
     prepare_packed_tiles,
 )
 
-__all__ = ["packed_sweep_update", "packed_sweep_update_ref", "prepare_packed_tiles"]
+__all__ = [
+    "packed_sweep_update",
+    "packed_sweep_update_ref",
+    "prepare_packed_tiles",
+    "dsss_spmv_block_partials",
+    "subshard_update",
+]

@@ -1,0 +1,123 @@
+"""Operand staging for the sub-shard kernel, and its public entry point.
+
+Port of the JAX package's ``repro.kernels.ops`` (the sub-shard half; its
+attention dispatch comes with the LM wing). ``prepare_*`` pad a sub-shard's
+(or one packed tile's) edge stream to a multiple of :data:`E_BLK` with
+⊕-identity weights and compute each block's base hub slot — arrays bitwise
+equal to the JAX package's — and put them on ``device`` (``None``: the CUDA
+card). :func:`subshard_update` runs the kernel on them
+(:mod:`repro_torch.kernels.dsss_spmv`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.identities import padding_identity_value
+from repro_torch.device import resolve_device
+from repro_torch.kernels.dsss_spmv import E_BLK, subshard_update
+
+__all__ = [
+    "subshard_update",
+    "prepare_subshard_operands",
+    "prepare_from_subshard",
+    "prepare_from_host_block",
+    "prepare_from_packed_tile",
+    "E_BLK",
+]
+
+
+def prepare_subshard_operands(
+    src_local: np.ndarray,
+    hub_inv_global: np.ndarray,
+    weights: np.ndarray | None,
+    dtype: torch.dtype,
+    *,
+    gather_op: str,
+    reduce: str,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pad the edge arrays to E_BLK and compute the block bases.
+
+    Returns ``(src_idx, hub_inv, weights, block_base)``. Padded edges carry
+    identity weights so they contribute the ⊕-identity: ``mul``/sum w=0,
+    ``add``/min w=+inf, ``add``/max w=-inf; they repeat the last hub slot.
+    ``mul`` with min/max has no finite multiplicative padding identity and
+    is refused.
+    """
+    if gather_op == "mul" and reduce != "sum":
+        raise ValueError("gather_op='mul' requires reduce='sum'")
+    dev = resolve_device(device)
+    e = len(src_local)
+    e_pad = max(E_BLK, -(-e // E_BLK) * E_BLK)
+    pad = e_pad - e
+    ident_w = padding_identity_value(reduce, dtype) if gather_op == "add" else 0.0
+    src_idx = np.pad(src_local, (0, pad))
+    hub_inv = np.pad(
+        hub_inv_global, (0, pad), constant_values=hub_inv_global[-1] if e else 0
+    )
+    # numpy has no bfloat16: stage in float32, round once on conversion
+    # (round to nearest even, as the JAX package's numpy bfloat16 does).
+    w = np.empty(e_pad, np.float32)
+    if weights is None:
+        w[:e] = 1.0 if gather_op == "mul" else 0.0
+    else:
+        w[:e] = np.asarray(weights, np.float32)
+    w[e:] = ident_w
+    block_base = hub_inv[::E_BLK].astype(np.int32)
+    as_i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)  # noqa: E731
+    return (
+        as_i32(src_idx),
+        as_i32(hub_inv),
+        torch.from_numpy(w).to(dtype).to(dev),
+        as_i32(block_base),
+    )
+
+
+def prepare_from_subshard(ss, dtype, *, gather_op: str, reduce: str, device=None):
+    """Stage kernel operands from a :class:`repro_torch.core.dsss.SubShard`."""
+    return prepare_subshard_operands(
+        ss.src_local, ss.hub_inv, ss.weights, dtype,
+        gather_op=gather_op, reduce=reduce, device=device,
+    )
+
+
+def prepare_from_host_block(blk: dict, dtype, *, gather_op: str, reduce: str, device=None):
+    """Stage kernel operands from a padded host block (a "shard file").
+
+    The host buffers are bucket-padded; the kernel pads to ``E_BLK`` with
+    its own identities, so it gets the unpadded ``e``-edge prefix.
+    """
+    e = blk["e"]
+    return prepare_subshard_operands(
+        blk["src_local"][:e],
+        blk["hub_inv"][:e],
+        None if blk["weights"] is None else blk["weights"][:e],
+        dtype,
+        gather_op=gather_op,
+        reduce=reduce,
+        device=device,
+    )
+
+
+def prepare_from_packed_tile(packed, t: int, dtype, *, gather_op: str, reduce: str, device=None):
+    """Stage kernel operands from one destination-aligned packed tile.
+
+    Its global hub slots (``base_slot + run_local``) are non-decreasing
+    along the tile, so the windowed reduce applies unchanged. Tile source
+    ids are global padded vertex ids: pass the flat ``(n_pad,)`` attributes
+    as ``src_vals``. A tile whose slots decrease (a ``src_sorted`` layout)
+    is refused.
+    """
+    e = int(packed.e_valid[t])
+    hub_inv_global = packed.base_slot[t] + packed.run_local[t, :e].astype(np.int64)
+    if e and np.any(np.diff(hub_inv_global) < 0):
+        raise ValueError(
+            f"tile {t} has decreasing hub slots (src_sorted layout?) — "
+            "not a valid windowed kernel stream"
+        )
+    w = None if packed.weights is None else packed.weights[t, :e]
+    return prepare_subshard_operands(
+        packed.src[t, :e], hub_inv_global, w, dtype,
+        gather_op=gather_op, reduce=reduce, device=device,
+    )

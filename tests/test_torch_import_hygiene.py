@@ -59,6 +59,17 @@ def test_default_device_without_cuda_raises(monkeypatch):
         repro_torch.resolve_device("cuda")
 
 
+def test_convert_without_a_device_raises_without_cuda(monkeypatch):
+    from repro_torch import convert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.attrs_from_numpy(np.zeros(4, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.aux_from_numpy({"x": np.zeros(4, np.float32)})
+    assert convert.attrs_from_numpy(np.zeros(4, np.float32), device="cpu").device.type == "cpu"
+
+
 class _OnCuda(torch.Tensor):
     """A CPU tensor that reports a CUDA device, to drive the wrapper's CUDA path."""
 
@@ -133,7 +144,7 @@ def test_missing_nvcc_raises(monkeypatch):
         ({"residency": "host"}, NotImplementedError),
         ({"residency": "disk"}, NotImplementedError),
         ({"execution": "packed"}, NotImplementedError),
-        ({"execution": "per_block"}, NotImplementedError),
+        ({"execution": "per_block", "residency": "host"}, NotImplementedError),
         ({"residency": "nowhere"}, ValueError),
     ],
 )
@@ -147,7 +158,7 @@ def test_unported_plans_raise():
     plan = repro_torch.ExecutionPlan(BFS(), max_iters=4)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         GraphSession(g, device="cpu", memory_budget=1000).run(plan)  # auto -> host
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         GraphSession(g, device="cpu").run(
-            repro_torch.ExecutionPlan(BFS(), strategy="fused", max_iters=4)
+            repro_torch.ExecutionPlan(BFS(), execution="packed", max_iters=4)
         )

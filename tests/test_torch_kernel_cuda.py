@@ -1,7 +1,12 @@
-"""The CUDA tile-sweep kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, and the per-block path, on the card.
 
-Needs a CUDA device (``-m cuda``); skips without one, since the kernel has
-no CPU mode. Imports no JAX, so it runs where only the port is installed:
+The tile sweep (B1) and the sub-shard ToHub update (B2) must equal their
+plain PyTorch versions bit for bit, launch after launch; the per-block
+path's ordered reductions must give the CPU's bits; and per-block
+SPU/DPU/MPU sessions must equal packed_kernel sessions bitwise on the card.
+
+Needs a CUDA device (``-m cuda``); skips without one, since the kernels
+have no CPU mode. Imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel_cuda.py
 """
@@ -10,12 +15,15 @@ import pytest
 import torch
 
 from repro_torch.core import identities as tid
+from repro_torch.core import session as session_mod
 from repro_torch.core import vertex_programs as vp
 from repro_torch.core.dsss import build_dsss
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.session import GraphSession
 from repro_torch.graph.generators import rmat, zipf
 from repro_torch.graph.preprocess import degree_and_densify
+from repro_torch.kernels import dsss_spmv as dk
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import packed_sweep as ps
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +128,134 @@ def test_session_on_card_matches_cpu(dev):
         GraphSession(g).run(pr).attrs, GraphSession(g, device="cpu").run(pr).attrs,
         rtol=1e-5, atol=1e-8,
     )
+
+
+# ---------------------------------------------------------------------------
+# B2, the sub-shard ToHub update
+# ---------------------------------------------------------------------------
+B2_SHAPES = [(64, 100, 32), (300, 2000, 150), (128, 513, 128), (1000, 4096, 999), (16, 8, 4)]
+SEMIRINGS = [("mul", "sum"), ("add", "min"), ("add", "max")]
+B2_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _b2_case(isize, e, nslots, gather_op, reduce, dtype, dev, sorted_slots=True):
+    rng = np.random.default_rng(e + isize)
+    src_local = rng.integers(0, isize, e).astype(np.int32)
+    hub_inv = rng.integers(0, nslots, e).astype(np.int32)
+    if sorted_slots:
+        hub_inv = np.sort(hub_inv)
+    w = rng.random(e).astype(np.float32) + 0.1
+    vals = torch.from_numpy(rng.random(isize).astype(np.float32) + 0.5).to(dtype).to(dev)
+    ops = kops.prepare_subshard_operands(
+        src_local, hub_inv, w, dtype, gather_op=gather_op, reduce=reduce, device=dev
+    )
+    return vals, ops
+
+
+def _b2_bitwise(vals, ops, num_slots, gather_op, reduce):
+    """Kernel == plain version bitwise, for the partials and the hub, twice."""
+    kw = dict(gather_op=gather_op, reduce=reduce)
+    before = dk.launches
+    parts = dk.dsss_spmv_block_partials(vals, *ops, **kw)
+    hub = dk.subshard_update(vals, *ops, num_slots, **kw)
+    hub_again = dk.subshard_update(vals, *ops, num_slots, **kw)
+    want_parts = dk.dsss_spmv_block_partials_ref(vals, *ops, **kw)
+    want_hub = dk.subshard_update_ref(vals, *ops, num_slots, **kw)
+    torch.cuda.synchronize()
+    assert dk.launches == before + 3
+    bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)  # noqa: E731
+    assert torch.equal(bits(parts), bits(want_parts))
+    assert torch.equal(bits(hub), bits(want_hub))
+    assert torch.equal(bits(hub), bits(hub_again))
+
+
+@pytest.mark.parametrize("dtype", B2_DTYPES, ids=str)
+@pytest.mark.parametrize("isize,e,nslots", B2_SHAPES)
+@pytest.mark.parametrize("gather_op,reduce", SEMIRINGS)
+def test_dsss_spmv_bitwise_equals_plain(isize, e, nslots, gather_op, reduce, dtype, dev):
+    vals, ops = _b2_case(isize, e, nslots, gather_op, reduce, dtype, dev)
+    _b2_bitwise(vals, ops, nslots, gather_op, reduce)
+
+
+@pytest.mark.parametrize("gather_op,reduce", SEMIRINGS)
+def test_dsss_spmv_unsorted_slots_bitwise_equals_plain(gather_op, reduce, dev):
+    vals, ops = _b2_case(300, 2000, 150, gather_op, reduce, torch.float32, dev, sorted_slots=False)
+    _b2_bitwise(vals, ops, 150, gather_op, reduce)
+
+
+@pytest.mark.parametrize("dtype", B2_DTYPES, ids=str)
+@pytest.mark.parametrize("gather_op,reduce", SEMIRINGS)
+def test_dsss_spmv_real_subshards(gather_op, reduce, dtype, dev):
+    """Every sub-shard of an R-MAT scale-14 graph, through kernel_operands."""
+    src, dst = rmat(14, edge_factor=16, seed=1)
+    w = np.random.default_rng(2).random(src.shape[0]).astype(np.float32) + 0.01
+    g = build_dsss(degree_and_densify(src, dst, w, drop_self_loops=True), 4)
+    sess = GraphSession(g, device=dev)
+    rng = np.random.default_rng(3)
+    for i, j in sorted(sess.block_keys):
+        vals = torch.from_numpy(rng.random(g.interval_size).astype(np.float32)).to(dtype).to(dev)
+        ops = sess.kernel_operands(i, j, dtype, gather_op=gather_op, reduce=reduce)
+        _b2_bitwise(vals, ops, sess.host_blocks[(i, j)]["u"], gather_op, reduce)
+
+
+# ---------------------------------------------------------------------------
+# The per-block path
+# ---------------------------------------------------------------------------
+def test_per_block_reductions_give_the_cpu_bits(dev):
+    """segment_reduce over (e, K) folds in order on the card: the CPU's bits."""
+    g = _graph("rmat", 4, True)
+    prog = vp.PageRank()
+    rng = np.random.default_rng(7)
+    K, isz = 3, g.interval_size
+    prev = (rng.random((K, isz)) + 0.1).astype(np.float32)
+    # Zero rank on dangling vertices: the fused apply's dangling-mass sum,
+    # whose order is pinned on neither device, is then exactly 0.
+    flat = np.tile(prev, (1, g.P))
+    flat[:, g.out_degree == 0] = 0.0
+    outs = {}
+    for where in ("cpu", dev):
+        sess = GraphSession(g, device=where)
+        aux = {k: v.to(sess.device) for k, v in prog.make_aux(g).items()}
+        got = []
+        for key in sorted(sess.block_keys):
+            i, j = key
+            acc = torch.zeros((K, isz), device=sess.device)
+            for _ in range(2):  # a second block folds onto a non-zero acc
+                acc = session_mod._block_gather_reduce(
+                    prog, torch.from_numpy(prev).to(sess.device), sess._interval_aux(aux, i),
+                    {}, sess.blocks[key], acc, True,
+                )
+            got.append(acc.cpu())
+        fused = session_mod._fused_iteration(
+            prog, torch.from_numpy(flat).to(sess.device), aux,
+            sess.fused_arrays(), (torch.arange(g.n_pad, device=sess.device) < g.n).reshape(g.P, isz),
+            torch.tensor(0.0, device=sess.device), True,
+        )[0]
+        outs[str(where)] = (torch.stack(got), fused.cpu())
+    cpu, card = outs["cpu"], outs[str(dev)]
+    assert torch.equal(cpu[0].view(torch.int32), card[0].view(torch.int32))
+    assert torch.equal(cpu[1].view(torch.int32), card[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("strategy", ["spu", "dpu", "mpu"])
+def test_per_block_sessions_bitwise_equal_packed_kernel_on_card(strategy, dev):
+    g = _graph("rmat", 8, False)
+    pr = vp.PageRank()
+    budget = 2 * g.interval_size * pr.attr_bytes * (g.P // 2)
+    runs = {}
+    for execution in ("per_block", "packed_kernel"):
+        sess = GraphSession(
+            g, device=dev, memory_budget=budget, residency="device", execution=execution
+        )
+        res = sess.run(ExecutionPlan(pr, strategy=strategy, max_iters=15, tol=0.0))
+        bfs = sess.run_batch([
+            ExecutionPlan(vp.BFS(), strategy=strategy, max_iters=g.n + 1, program_kwargs={"root": r})
+            for r in (0, 5, 9)
+        ])
+        runs[execution] = (res, bfs)
+    (bp, bb), (pp, pb) = runs["per_block"], runs["packed_kernel"]
+    np.testing.assert_array_equal(bp.attrs.view(np.int32), pp.attrs.view(np.int32))
+    assert bp.meters.model_dict() == pp.meters.model_dict()
+    for a, b in zip(bb, pb):
+        np.testing.assert_array_equal(a.attrs, b.attrs)
+    assert bb.meters.model_dict() == pb.meters.model_dict()

@@ -205,6 +205,6 @@ def test_convert_round_trips_the_reference_graph(weighted):
     _fields_equal(t.edgelist, j.edgelist)
     _fields_equal(t.packed_sweep(), j.packed_sweep())
     a = np.arange(6, dtype=np.float32)
-    assert convert.attrs_from_numpy(a).numpy().tobytes() == a.tobytes()
-    aux = convert.aux_from_numpy({"x": a, "s": np.float32(2.5)})
+    assert convert.attrs_from_numpy(a, device="cpu").numpy().tobytes() == a.tobytes()
+    aux = convert.aux_from_numpy({"x": a, "s": np.float32(2.5)}, device="cpu")
     assert aux["s"].ndim == 0 and aux["x"].dtype.is_floating_point
