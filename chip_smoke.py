@@ -46,6 +46,30 @@ Phases, each printing one JSON line:
    hub-slot × source-vertex matrix (the yardstick). The plain pass's hub
    vectors are held against two kernel passes, bitwise, for every
    sub-shard.
+9. flash_attention_vs_plain: the flash-attention kernel (B3) against its
+   plain version (a materialized float32 softmax) on the card — the JAX
+   tests' cases (five shapes, windows, softcaps, non-causal), ragged
+   lengths, rows that see no key, gemma-2b's two serving shapes, gemma2-9b's
+   and qwen2.5-14b's; float32 and bfloat16. Tolerance: the JAX tests' own
+   bounds, rtol = atol = 2e-5 (float32) and 3e-2 (bfloat16); a second
+   launch gives the same bits.
+10. lm_serving: the LM main path, ``ServeEngine(max_batch=8)`` over
+    gemma-2b at full width and depth (18 layers, 2.51 B parameters, bf16
+    weights drawn on the card from ``torch.Generator`` seed 0),
+    ``attn_impl="pallas"``: 8 prompts of 1024 tokens and 4 of 2048
+    (numpy seed 0), 32 greedy tokens each, two buckets. Checks: B3 launched
+    once per layer and bucket (36), the other kernels not at all; ids in
+    range; the same tokens as a first (warm-up) run; each bucket's prefill
+    logits finite and within 2**-4 of the largest |logit| of the same
+    weights under ``attn_impl="ref"``. Prints prefill, time to first token,
+    decode ms per token, tokens/s, peak memory, and B3 per launch at each
+    bucket's shapes beside its plain version, its bound and
+    ``scaled_dot_product_attention`` (the yardstick, used nowhere in the
+    port).
+11. lm_serving_f32: the same requests with float32 weights and no TF32,
+    under ``attn_impl="pallas"`` and ``"ref"``: the greedy tokens must be
+    equal, or part only where the top-2 logit gap is below 1e-4 of the
+    logit.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 and the script exits non-zero. Without a CUDA device it exits non-zero
@@ -66,6 +90,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_PER_S = 67e12  # float32 outside the tensor cores
+H100_BF16_TC_PER_S = 989e12  # bfloat16 on the tensor cores, dense
 
 
 def emit(phase: str, **fields) -> None:
@@ -92,10 +117,301 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+# -- the LM serving path (kernel B3) ---------------------------------------
+LM_ARCH = "gemma-2b"  # full width and depth: 18 layers, d_model 2048, head 256, MQA
+LM_BUCKETS = ((8, 1024), (4, 2048))  # (requests, prompt length): two buckets
+LM_NEW_TOKENS = 32
+B3_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # the JAX tests' bounds
+
+
+def b3_work(q, k, causal=True, window=None):
+    """(least bytes, operations) of one attention call: q, k, v and out each
+    moved once; 4·D operations per visible (query, key) pair."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    qp = torch.arange(sq)[:, None]
+    kp = torch.arange(sk)[None, :]
+    vis = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        vis &= qp >= kp
+    if window is not None:
+        vis &= qp - kp < window
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return nbytes, 4 * d * b * hq * int(vis.sum())
+
+
+def b3_bound_ms(nbytes: int, ops: int, dtype) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, the float32 CUDA-core floor in ms). The
+    bound takes the card's fastest rate for the input type: the tensor
+    cores' for bfloat16, the CUDA cores' for float32."""
+    rate = H100_BF16_TC_PER_S if dtype == torch.bfloat16 else H100_FP32_PER_S
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", 1e3 * ops / H100_FP32_PER_S
+
+
+def flash_attention_vs_plain(dev) -> dict:
+    """B3 against its plain version: the JAX tests' cases and the serving shapes."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cases = [((2, 4, 4, 64, 64, 32), {}), ((1, 8, 2, 128, 128, 64), {}),
+             ((1, 4, 1, 96, 160, 32), {}), ((2, 16, 8, 32, 32, 128), {}),
+             ((1, 2, 2, 257, 130, 64), {})]
+    cases += [((1, 4, 2, 128, 128, 32), {"window": w}) for w in (1, 8, 64, 1024)]
+    cases += [((1, 4, 4, 64, 64, 32), {"softcap": c}) for c in (1.0, 30.0, 50.0)]
+    cases += [((2, 4, 4, 64, 96, 32), {"causal": False}),
+              ((1, 4, 2, 1000, 777, 64), {}),  # ragged: no length a multiple of a block
+              ((1, 4, 2, 999, 999, 48), {"window": 100, "softcap": 30.0}),
+              ((1, 4, 2, 96, 32, 32), {"window": 8}),  # rows past 38 see no key
+              ((8, 8, 1, 1024, 1024, 256), {}), ((4, 8, 1, 2048, 2048, 256), {}),  # gemma-2b
+              ((1, 16, 8, 2048, 2048, 256), {"window": 4096, "softcap": 50.0}),  # gemma2-9b
+              ((1, 40, 8, 1024, 1024, 128), {})]  # qwen2.5-14b
+    n = 0
+    max_abs_err = 0.0
+    t0 = time.perf_counter()
+    before = fa.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b, hq, hkv, sq, sk, d), kw in cases:
+            kw = {"causal": True, **kw}
+            r = np.random.default_rng(sq * 7 + sk + d)
+            q, k, v = (
+                torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(dev).to(dtype)
+                for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
+            )
+            got = fa.flash_attention(q, k, v, **kw)
+            again = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            label = f"{dtype} {(b, hq, hkv, sq, sk, d)} {kw}"
+            check(torch.equal(got, again), f"flash_attention not deterministic: {label}")
+            check(bool(torch.isfinite(got).all()), f"flash_attention not finite: {label}")
+            tol = B3_TOL[dtype]
+            close = torch.isclose(got.float(), want.float(), rtol=tol, atol=tol)
+            err = float((got.float() - want.float()).abs().max())
+            check(bool(close.all()), f"flash_attention != plain (max abs err {err}): {label}")
+            if kw.get("window") == 8 and sq > sk:
+                check(bool((got[:, :, sk + 7:] == 0).all()), f"fully masked rows not 0: {label}")
+            max_abs_err = max(max_abs_err, err)
+            n += 1
+            del q, k, v, got, again, want
+    emit(
+        "flash_attention_vs_plain", cases=n, launches=fa.launches - before,
+        max_abs_err=max_abs_err, tolerance={"float32": 2e-5, "bfloat16": 3e-2},
+        repeat_bitwise=True, seconds=time.perf_counter() - t0,
+    )
+    return {"max_abs_err": max_abs_err, "cases": n}
+
+
+def lm_requests(cfg, request_cls) -> list:
+    """8 prompts of 1024 tokens and 4 of 2048, ids from numpy's rng seed 0."""
+    rng = np.random.default_rng(0)
+    reqs = []
+    for count, length in LM_BUCKETS:
+        for _ in range(count):
+            prompt = rng.integers(0, cfg.vocab_size, length).tolist()
+            reqs.append(request_cls(len(reqs), prompt, max_new_tokens=LM_NEW_TOKENS))
+    return reqs
+
+
+def serve(engine, requests) -> dict:
+    for r in requests:
+        engine.submit(r)
+    out = engine.run()
+    torch.cuda.synchronize()
+    return out
+
+
+def lm_serving(dev, smi, cfg) -> dict:
+    """ServeEngine at full width, bf16, attn_impl="pallas": the LM main path."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import dsss_spmv as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import packed_sweep as ps
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving.llm_demo import Request, ServeEngine
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    requests = lm_requests(cfg, Request)
+    warm = serve(ServeEngine(cfg, params, max_batch=8), requests)  # cuBLAS and the kernel warm up
+    engine = ServeEngine(cfg, params, max_batch=8)
+    requests = lm_requests(cfg, Request)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev)  # weights and what earlier phases hold
+    ps.launches = 0  # every count to 0 just before the LM serving path
+    dk.launches = 0
+    fa.launches = 0
+    t1 = time.perf_counter()
+    results = serve(engine, requests)
+    run_s = time.perf_counter() - t1
+    counts = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = len(LM_BUCKETS) * cfg.num_layers
+    check(counts == {"packed_sweep": 0, "dsss_spmv": 0, "flash_attention": want},
+          f"LM serving launched {counts}; want {want} flash_attention launches (one per layer and bucket)")
+    check(sorted(results) == list(range(len(requests))), "LM serving lost a request")
+    for rid, toks in results.items():
+        check(len(toks) == LM_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in toks),
+              f"request {rid}: {len(toks)} tokens, ids {min(toks)}..{max(toks)}")
+    check(results == warm, "greedy tokens differ between two runs of the engine")
+
+    # The prefill's last logits against the same weights with attn_impl="ref".
+    # Both compute attention in float32 and round its output to bfloat16;
+    # their sums differ in order by float32 ulps, so an output near a bf16
+    # rounding boundary moves by one bf16 ulp, and that passes through 18 bf16
+    # layers. Bound: 2**-4 of the largest |logit| (8 bf16 ulps of it).
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    logits_check = {}
+    by_len = {}
+    for r in requests:
+        by_len.setdefault(len(r.prompt), []).append(r.prompt)
+    for length, prompts in by_len.items():
+        toks = torch.tensor(prompts, device=dev)
+        got = prefill(cfg, params, toks, length + LM_NEW_TOKENS + 1)[0].float()
+        want_l = prefill(ref_cfg, params, toks, length + LM_NEW_TOKENS + 1)[0].float()
+        check(bool(torch.isfinite(got).all()), f"prefill logits not finite at {length}")
+        top = float(want_l.abs().max())
+        err = float((got - want_l).abs().max())
+        agree = float((got.argmax(-1) == want_l.argmax(-1)).float().mean())
+        check(err <= 2**-4 * top, f"prefill logits (pallas vs ref) differ by {err} at max |logit| {top}")
+        logits_check[length] = {"max_abs_diff": err, "max_abs_logit": top, "argmax_agree": agree}
+
+    # Where a bucket's time goes: the first bucket's prefill, then 4 decode
+    # steps, each in its own torch.profiler window (device events by name).
+    count, length = LM_BUCKETS[0]
+    toks = torch.tensor(by_len[length][:count], device=dev)
+
+    def traced(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t1)
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+        busy_ms = sum(by_name.values()) / 1e3
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+        return out, {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                     "device_busy_share": busy_ms / wall_ms, "top_device_us": top}
+
+    (logits, cache), prefill_trace = traced(lambda: prefill(cfg, params, toks, length + 5))
+
+    def four_steps():
+        lg, c = logits, cache
+        for step in range(4):
+            nxt = lg[:, 0, : cfg.vocab_size].argmax(-1)[:, None]
+            lg, c = decode_step(cfg, params, c, nxt, length + step)
+        return lg
+
+    _, decode_trace = traced(four_steps)
+    breakdown = {f"prefill_{count}x{length}": prefill_trace,
+                 f"decode_4_steps_{count}x{length}": decode_trace}
+    del logits, cache
+    # B3 per launch at each bucket's shapes, as attn_apply passes them: q, k
+    # and v made (B, S, H, D) and transposed to (B, H, S, D).
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    per_bucket = {}
+    for count, length in LM_BUCKETS:
+        g = torch.Generator(device=dev).manual_seed(length)
+        q, k, v = (
+            torch.randn((count, length, h, d), generator=g, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+            for h in (hq, hkv, hkv)
+        )
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=10)
+        plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True), reps=3)
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=10)
+        nbytes, ops = b3_work(q, k)
+        bound, bound_by, f32_floor = b3_bound_ms(nbytes, ops, q.dtype)
+        per_bucket[f"{count}x{length}"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "bound_by": bound_by,
+            "f32_cuda_core_floor_ms": f32_floor, "min_bytes": nbytes, "ops": ops,
+        }
+        del q, k, v
+    stats = engine.stats
+    n_tokens = sum(len(t) for t in results.values())
+    emit(
+        "lm_serving", arch=cfg.name, dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+        params=cfg.num_params(), layers=cfg.num_layers, requests=len(requests),
+        buckets=[[s["batch"], s["prompt_len"]] for s in stats], launches=counts,
+        prefill_ms={f"{s['batch']}x{s['prompt_len']}": 1e3 * (s["first_token_s"] - s["started_s"])
+                    for s in stats},
+        ttft_ms={f"{s['batch']}x{s['prompt_len']}": 1e3 * s["first_token_s"] for s in stats},
+        decode_ms_per_token={f"{s['batch']}x{s['prompt_len']}": 1e3 * s["decode_s"] / s["decode_steps"]
+                             for s in stats},
+        tokens_per_s=n_tokens / run_s, run_s=run_s, generated_tokens=n_tokens,
+        prefill_logits_vs_ref=logits_check, b3_per_launch=per_bucket, trace=breakdown,
+        init_s=init_s, peak_device_bytes=peak, peak_above_start_bytes=peak - start_bytes,
+        weight_bytes=sum(t.numel() * t.element_size() for t in params.parameters()),
+        nvidia_smi=smi,
+    )
+    # Per launch over the main path: half its launches at each bucket shape.
+    mean = {key: float(np.mean([b[key] for b in per_bucket.values()]))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"launches": counts["flash_attention"], **mean,
+            "bound_by": per_bucket[f"{LM_BUCKETS[-1][0]}x{LM_BUCKETS[-1][1]}"]["bound_by"]}
+
+
+def lm_serving_f32(dev, cfg) -> None:
+    """The same requests in float32, attn_impl "pallas" then "ref": greedy tokens equal."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving.llm_demo import Request, ServeEngine
+
+    # Full float32 products on both paths (no TF32), stated and set.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev)
+    results, launches, run_s = {}, {}, {}
+    for impl in ("pallas", "ref"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        fa.launches = 0
+        t0 = time.perf_counter()
+        results[impl] = serve(ServeEngine(c, params, max_batch=8), lm_requests(c, Request))
+        run_s[impl] = time.perf_counter() - t0
+        launches[impl] = fa.launches
+    want = len(LM_BUCKETS) * cfg.num_layers
+    check(launches == {"pallas": want, "ref": 0}, f"float32 serving launches {launches}")
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    prompts = {r.request_id: r.prompt for r in lm_requests(cfg, Request)}
+    parted = []
+    for rid, got in results["pallas"].items():
+        want_t = results["ref"][rid]
+        if got == want_t:
+            continue
+        step = next(i for i, (a, b) in enumerate(zip(got, want_t)) if a != b)
+        toks = torch.tensor([prompts[rid] + want_t[:step]], device=dev)
+        logits = prefill(ref_cfg, params, toks, toks.shape[1] + 1)[0][0, 0, : cfg.vocab_size].float()
+        top2 = torch.topk(logits, 2).values
+        gap = float(top2[0] - top2[1])
+        parted.append({"request": rid, "step": step, "top2_gap": gap, "top_logit": float(top2[0])})
+        check(gap < 1e-4 * abs(float(top2[0])),
+              f"float32 request {rid} parts at step {step} with a top-2 gap of {gap}")
+    emit(
+        "lm_serving_f32", arch=cfg.name, dtype=cfg.dtype, allow_tf32=False, launches=launches,
+        requests=len(prompts), tokens_equal=not parted, parted=parted, run_s=run_s,
+        peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+        peak_above_start_bytes=torch.cuda.max_memory_allocated(dev) - start_bytes,
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
+    import dataclasses
+
     from repro_torch import core
+    from repro_torch.configs import get_config
     from repro_torch.core import session as session_mod
     from repro_torch.core import vertex_programs as vp
     from repro_torch.core.identities import reduce_identity
@@ -103,6 +419,7 @@ def main() -> None:
     from repro_torch.graph.preprocess import degree_and_densify
     from repro_torch.kernels import _build
     from repro_torch.kernels import dsss_spmv as dk
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import packed_sweep as ps
 
@@ -303,6 +620,7 @@ def main() -> None:
 
     ps.launches = 0  # every count to 0 just before the main path
     dk.launches = 0
+    fa.launches = 0
     runs = {}
     pr_sweep_ms = {}  # the sweep loop's host clock, ending in a synchronize
     pr_run_ms = {}  # the whole run() call, set-up and result copy included
@@ -335,7 +653,7 @@ def main() -> None:
     torch.cuda.synchronize()
     bfs_launches = ps.launches - before
     main_launches = ps.launches  # read just after the main path
-    check(dk.launches == 0, "the packed path launched the sub-shard kernel")
+    check(dk.launches == 0 and fa.launches == 0, "the packed path launched another kernel")
     peak_bytes = torch.cuda.max_memory_allocated(dev)
     check(bfs.fused and bfs.converged, "BFS batch did not fuse or converge")
     check(bfs_launches == bfs.iterations,
@@ -493,6 +811,7 @@ def main() -> None:
     t_stage_blocks = time.perf_counter() - t0 - t_host_blocks
     ps.launches = 0  # every count to 0 just before the per-block path
     dk.launches = 0
+    fa.launches = 0
     pb_runs = {}
     pb_sweep_ms = {}
     pb_run_ms = {}
@@ -512,8 +831,9 @@ def main() -> None:
     end.record()
     torch.cuda.synchronize()
     pb_bfs_run_ms = start.elapsed_time(end)
-    pb_launches = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches}  # just after
-    check(pb_launches == {"packed_sweep": 0, "dsss_spmv": 0},
+    pb_launches = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches,
+                   "flash_attention": fa.launches}  # just after
+    check(pb_launches == {"packed_sweep": 0, "dsss_spmv": 0, "flash_attention": 0},
           f"the per-block path launched a kernel: {pb_launches}")
     for s in ("spu", "dpu", "mpu"):
         check(np.array_equal(pb_runs[s].attrs.view(np.int32), ref.view(np.int32)),
@@ -574,11 +894,12 @@ def main() -> None:
 
     ps.launches = 0  # every count to 0 just before the sub-shard kernel path
     dk.launches = 0
+    fa.launches = 0
     accs = kernel_sweep()
     torch.cuda.synchronize()
     sub_launches = dk.launches  # just after
     check(sub_launches == len(keys), f"sub-shard path: {sub_launches} launches for {len(keys)} calls")
-    check(ps.launches == 0, "the sub-shard path launched the tile sweep")
+    check(ps.launches == 0 and fa.launches == 0, "the sub-shard path launched another kernel")
     acc = torch.cat(accs)
     swept = (1 - pr.damping) / n + pr.damping * (acc + dangling / n)
     one = sess.run(core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0)).attrs
@@ -647,6 +968,15 @@ def main() -> None:
     )
     del hub_mat, slots, hcol, hcrow
 
+    # -- phases 9-11: the LM serving path and kernel B3 -----------------------
+    del pb, sess, tiles, staged, host_blocks, g, el, attrs, acc, aux, contrib
+    torch.cuda.empty_cache()
+    b3_check = flash_attention_vs_plain(dev)
+    lm_cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas")
+    b3 = lm_serving(dev, smi, lm_cfg)
+    torch.cuda.empty_cache()
+    lm_serving_f32(dev, dataclasses.replace(lm_cfg, dtype="float32"))
+
     print(json.dumps({"kernels": [{
         "name": "packed_sweep",
         "route": "cuda",
@@ -671,6 +1001,18 @@ def main() -> None:
         "bound_ms": b2_bound_ms,
         "bound_by": b2_bound_by,
         "library_ms": b2_library_ms,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:34",
+        "launches": b3["launches"],
+        "max_abs_err": b3_check["max_abs_err"],
+        "ms": b3["ms"],
+        "plain_ms": b3["plain_ms"],
+        "bound_ms": b3["bound_ms"],
+        "bound_by": b3["bound_by"],
+        "library_ms": b3["library_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

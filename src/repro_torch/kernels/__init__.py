@@ -6,6 +6,11 @@
 - :mod:`repro_torch.kernels.dsss_spmv` — the sub-shard ToHub update
   (``csrc/dsss_spmv.cu``), counterpart of ``repro.kernels.dsss_spmv``;
   :mod:`repro_torch.kernels.ops` stages its operands.
+- :mod:`repro_torch.kernels.flash_attention` — online-softmax attention
+  (``csrc/flash_attention.cu``), counterpart of
+  ``repro.kernels.flash_attention``; :func:`repro_torch.kernels.ops.attention`
+  is the models' entry. (Not re-exported here: the function's name is the
+  module's.)
 
 Kernels are built from ``csrc/`` at first use (:mod:`._build`); importing
 this package builds nothing.

@@ -20,7 +20,7 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "load", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("packed_sweep", "dsss_spmv")
+SOURCES = ("packed_sweep", "dsss_spmv", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

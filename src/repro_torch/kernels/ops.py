@@ -1,7 +1,8 @@
-"""Operand staging for the sub-shard kernel, and its public entry point.
+"""Model- and engine-facing kernel entry points, and operand staging.
 
-Port of the JAX package's ``repro.kernels.ops`` (the sub-shard half; its
-attention dispatch comes with the LM wing). ``prepare_*`` pad a sub-shard's
+Port of the JAX package's ``repro.kernels.ops``. :func:`attention` is the
+LM wing's attention entry: the flash-attention kernel B3 or its plain
+version. ``prepare_*`` pad a sub-shard's
 (or one packed tile's) edge stream to a multiple of :data:`E_BLK` with
 ⊕-identity weights and compute each block's base hub slot — arrays bitwise
 equal to the JAX package's — and put them on ``device`` (``None``: the CUDA
@@ -16,8 +17,10 @@ import torch
 from repro_torch.core.identities import padding_identity_value
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dsss_spmv import E_BLK, subshard_update
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
 __all__ = [
+    "attention",
     "subshard_update",
     "prepare_subshard_operands",
     "prepare_from_subshard",
@@ -121,3 +124,24 @@ def prepare_from_packed_tile(packed, t: int, dtype, *, gather_op: str, reduce: s
         packed.src[t, :e], hub_inv_global, w, dtype,
         gather_op=gather_op, reduce=reduce, device=device,
     )
+
+
+def attention(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Model-facing attention entry point.
+
+    ``use_kernel=True`` runs :func:`flash_attention`: the CUDA kernel B3 on
+    a CUDA tensor (or an error), its plain version on a CPU tensor.
+    ``use_kernel=False`` runs the plain materialized softmax.
+    """
+    fn = flash_attention if use_kernel else flash_attention_ref
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)

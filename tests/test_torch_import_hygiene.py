@@ -26,6 +26,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE
 def test_import_pulls_in_no_jax_and_no_repro():
     code = (
         "import sys, repro_torch, repro_torch.convert, repro_torch.kernels._build\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.serving.llm_demo\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -68,6 +70,25 @@ def test_convert_without_a_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.aux_from_numpy({"x": np.zeros(4, np.float32)})
     assert convert.attrs_from_numpy(np.zeros(4, np.float32), device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_without_a_device_raise_without_cuda(monkeypatch):
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_params
+    from repro_torch.serving.llm_demo import ServeEngine
+
+    cfg = get_config("gemma-2b", smoke=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: Model(cfg),
+        lambda: init_params(cfg, 0),
+        lambda: ServeEngine(cfg),
+        lambda: convert.lm_params_from_numpy(cfg, {}),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert Model(cfg, device="cpu").init(0).device.type == "cpu"
 
 
 class _OnCuda(torch.Tensor):

@@ -1,7 +1,12 @@
 """The CUDA kernels against their plain versions, and the per-block path, on the card.
 
 The tile sweep (B1) and the sub-shard ToHub update (B2) must equal their
-plain PyTorch versions bit for bit, launch after launch; the per-block
+plain PyTorch versions bit for bit, launch after launch. Flash attention
+(B3) sums in another order than its plain version (a materialized
+softmax), so it is held within the JAX tests' own bounds for the Pallas
+kernel, ``rtol = atol = 2e-5`` in float32 and ``3e-2`` in bfloat16, and a
+repeated launch must give the same bits; the LM serving path with
+``attn_impl="pallas"`` must launch it once per layer. The per-block
 path's ordered reductions must give the CPU's bits; and per-block
 SPU/DPU/MPU sessions must equal packed_kernel sessions bitwise on the card.
 
@@ -23,6 +28,7 @@ from repro_torch.core.session import GraphSession
 from repro_torch.graph.generators import rmat, zipf
 from repro_torch.graph.preprocess import degree_and_densify
 from repro_torch.kernels import dsss_spmv as dk
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import packed_sweep as ps
 
@@ -259,3 +265,78 @@ def test_per_block_sessions_bitwise_equal_packed_kernel_on_card(strategy, dev):
     for a, b in zip(bb, pb):
         np.testing.assert_array_equal(a.attrs, b.attrs)
     assert bb.meters.model_dict() == pb.meters.model_dict()
+
+
+# ---------------------------------------------------------------------------
+# B3: flash attention
+# ---------------------------------------------------------------------------
+B3_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+B3_CASES = [
+    # (B, Hq, Hkv, Sq, Sk, D), kwargs
+    ((2, 4, 4, 64, 64, 32), dict(causal=True)),
+    ((1, 8, 2, 128, 128, 64), dict(causal=True)),
+    ((1, 4, 1, 96, 160, 32), dict(causal=True)),
+    ((2, 16, 8, 32, 32, 128), dict(causal=True)),
+    ((1, 2, 2, 257, 130, 64), dict(causal=True)),
+    ((1, 4, 2, 128, 128, 32), dict(causal=True, window=8)),
+    ((1, 4, 4, 64, 64, 32), dict(causal=True, softcap=30.0)),
+    ((2, 4, 4, 64, 96, 32), dict(causal=False)),
+    ((1, 4, 2, 96, 32, 32), dict(causal=True, window=8)),  # rows that see no key
+    ((1, 8, 1, 300, 300, 256), dict(causal=True)),  # gemma-2b's head
+    ((1, 16, 8, 200, 200, 256), dict(causal=True, window=64, softcap=50.0)),  # gemma2
+    ((1, 40, 8, 100, 100, 128), dict(causal=True)),  # qwen2.5-14b
+    ((2, 4, 2, 50, 50, 16), dict(causal=True, scale=0.5)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape,kw", B3_CASES, ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else str(c))
+def test_flash_attention_matches_plain(shape, kw, dtype, dev):
+    b, hq, hkv, sq, sk, d = shape
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype).to(dev)
+        for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
+    )
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    tol = B3_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_strided_inputs(dev):
+    """(B, S, H, D) tensors transposed to (B, H, S, D), as attn_apply passes them."""
+    rng = np.random.default_rng(3)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev).transpose(1, 2)
+        for s in ((2, 70, 8, 64), (2, 70, 2, 64), (2, 70, 2, 64))
+    )
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert torch.equal(got, want)
+
+
+def test_lm_prefill_launches_flash_attention_per_layer(dev):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    for arch in ("gemma-2b", "gemma2-9b"):
+        base = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        outs = {}
+        for impl in ("pallas", "ref"):
+            cfg = dataclasses.replace(base, attn_impl=impl)
+            model = Model(cfg, device=dev)
+            params = model.init(0)
+            toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 40))).to(dev)
+            before = fa.launches
+            outs[impl] = model.prefill(params, toks, 50)[0]
+            assert fa.launches - before == (cfg.num_layers if impl == "pallas" else 0)
+        torch.testing.assert_close(outs["pallas"], outs["ref"], rtol=1e-4, atol=1e-4)
