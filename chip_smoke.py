@@ -8,6 +8,10 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit; the kernels are built from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, started together).
+   b3_build: what ptxas reports for each body of kernel B3 (registers,
+   spills, wgmma serialized or not) and the tensor-core instructions in the
+   built library's SASS (``cuobjdump -sass``: HGMMA for wgmma, HMMA for
+   mma.sync); the run fails if there are none.
 2. kernel_vs_plain: the tile-sweep kernel against its plain PyTorch version
    on the card — R-MAT scale 14 and a zipf graph, P in {4, 16}, adaptive and
    subshard packing, all six programs, weighted and unweighted, K=1 full
@@ -50,9 +54,9 @@ Phases, each printing one JSON line:
    plain version (a materialized float32 softmax) on the card — the JAX
    tests' cases (five shapes, windows, softcaps, non-causal), ragged
    lengths, rows that see no key, gemma-2b's two serving shapes, gemma2-9b's
-   and qwen2.5-14b's; float32 and bfloat16. Tolerance: the JAX tests' own
-   bounds, rtol = atol = 2e-5 (float32) and 3e-2 (bfloat16); a second
-   launch gives the same bits.
+   and qwen2.5-14b's; float32 (the CUDA-core body) and bfloat16 (the
+   tensor-core body). Tolerance: the JAX tests' own bounds, rtol = atol =
+   2e-5 (float32) and 3e-2 (bfloat16); a second launch gives the same bits.
 10. lm_serving: the LM main path, ``ServeEngine(max_batch=8)`` over
     gemma-2b at full width and depth (18 layers, 2.51 B parameters, bf16
     weights drawn on the card from ``torch.Generator`` seed 0),
@@ -62,10 +66,11 @@ Phases, each printing one JSON line:
     range; the same tokens as a first (warm-up) run; each bucket's prefill
     logits finite and within 2**-4 of the largest |logit| of the same
     weights under ``attn_impl="ref"``. Prints prefill, time to first token,
-    decode ms per token, tokens/s, peak memory, and B3 per launch at each
-    bucket's shapes beside its plain version, its bound and
+    decode ms per token, tokens/s, peak memory, and (line b3_timing) B3
+    per launch at each bucket's shapes beside its plain version, its bound,
     ``scaled_dot_product_attention`` (the yardstick, used nowhere in the
-    port).
+    port) and the float32 body at the same shapes, with the achieved
+    TFLOP/s and the share of the bound.
 11. lm_serving_f32: the same requests with float32 weights and no TF32,
     under ``attn_impl="pallas"`` and ``"ref"``: the greedy tokens must be
     equal, or part only where the top-2 logit gap is below 1e-4 of the
@@ -147,6 +152,40 @@ def b3_bound_ms(nbytes: int, ops: int, dtype) -> tuple[float, str, float]:
     rate = H100_BF16_TC_PER_S if dtype == torch.bfloat16 else H100_FP32_PER_S
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", 1e3 * ops / H100_FP32_PER_S
+
+
+def b3_build_report(build) -> dict:
+    """What ptxas said about each body of B3, and its SASS's tensor-core instructions."""
+    import re
+
+    kernels = {}
+    log = build.build_log.get("flash_attention", "")
+    for part in log.split("Compiling entry function ")[1:]:
+        name = part.split("'")[1]
+        body = "tensor_cores" if "flash_tc_kernel" in name else "cuda_cores"
+        dp = re.search(r"Li(\d+)E", name).group(1)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        kernels[f"{body}_D{dp}"] = {
+            "registers": int(re.search(r"Used (\d+) registers", part).group(1)),
+            "spill_store_bytes": int(spills.group(1)), "spill_load_bytes": int(spills.group(2)),
+        }
+    serialized = re.findall(r"C7512\) Potential Performance Loss: wgmma.mma_async instructions "
+                            r"are serialized[^']*'[^']*Li(\d+)E", log)
+    for dp in serialized:
+        kernels[f"tensor_cores_D{dp}"]["wgmma_serialized"] = True
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build._target("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    # ptxas counts registers at entry; after setmaxnreg the tensor-core
+    # body's consumers may use more: the highest register its SASS names.
+    for func in sass.split("Function : ")[1:]:
+        name = func.split("\n", 1)[0]
+        dp = re.search(r"Li(\d+)E", name)
+        key = f"{'tensor_cores' if 'flash_tc_kernel' in name else 'cuda_cores'}_D{dp.group(1)}" if dp else None
+        if key in kernels:
+            kernels[key]["sass_highest_register"] = max(int(r) for r in re.findall(r"\bR(\d+)\b", func))
+    return {"ptxas": kernels,
+            "sass": {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}}
 
 
 def flash_attention_vs_plain(dev) -> dict:
@@ -327,13 +366,18 @@ def lm_serving(dev, smi, cfg) -> dict:
         plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True), reps=3)
         lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps=10)
+        qf, kf, vf = q.float(), k.float(), v.float()  # the float32 body, same strides
+        f32_ms = cuda_ms(lambda: fa.flash_attention(qf, kf, vf, causal=True), reps=5)
         nbytes, ops = b3_work(q, k)
         bound, bound_by, f32_floor = b3_bound_ms(nbytes, ops, q.dtype)
         per_bucket[f"{count}x{length}"] = {
             "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "bound_by": bound_by,
-            "f32_cuda_core_floor_ms": f32_floor, "min_bytes": nbytes, "ops": ops,
+            "share_of_bound": bound / ms, "tflops": ops / ms / 1e9, "library_tflops": ops / lib / 1e9,
+            "f32_ms": f32_ms, "f32_cuda_core_floor_ms": f32_floor, "min_bytes": nbytes, "ops": ops,
         }
-        del q, k, v
+        del q, k, v, qf, kf, vf
+    emit("b3_timing", arch=cfg.name, shapes={"Hq": hq, "Hkv": hkv, "D": d, "causal": True},
+         per_bucket=per_bucket, nvidia_smi=smi)
     stats = engine.stats
     n_tokens = sum(len(t) for t in results.values())
     emit(
@@ -346,7 +390,7 @@ def lm_serving(dev, smi, cfg) -> dict:
         decode_ms_per_token={f"{s['batch']}x{s['prompt_len']}": 1e3 * s["decode_s"] / s["decode_steps"]
                              for s in stats},
         tokens_per_s=n_tokens / run_s, run_s=run_s, generated_tokens=n_tokens,
-        prefill_logits_vs_ref=logits_check, b3_per_launch=per_bucket, trace=breakdown,
+        prefill_logits_vs_ref=logits_check, trace=breakdown,
         init_s=init_s, peak_device_bytes=peak, peak_above_start_bytes=peak - start_bytes,
         weight_bytes=sum(t.numel() * t.element_size() for t in params.parameters()),
         nvidia_smi=smi,
@@ -437,6 +481,10 @@ def main() -> None:
         "device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
     )
+    b3_build = b3_build_report(_build)
+    emit("b3_build", **b3_build)
+    check(b3_build["sass"]["HGMMA"] + b3_build["sass"]["HMMA"] > 0,
+          "the flash_attention library holds no tensor-core instruction")
 
     # -- phase 2: the kernel against its plain version on the card ----------
     rng = np.random.default_rng(0)

@@ -17,8 +17,12 @@ never repeated in memory):
 On a CPU tensor :func:`flash_attention` runs the plain version
 (:func:`flash_attention_ref`, a materialized softmax); on a CUDA tensor it
 launches the hand-written kernel of ``csrc/flash_attention.cu`` or raises.
-The two sum in other orders, so they agree within a tolerance, not bit for
-bit; the kernel uses no atomics, so a repeated launch gives the same bits.
+The kernel has two bodies, chosen by dtype: bfloat16 inputs go to the
+tensor cores (``q·kᵀ`` from the bf16 inputs with float32 accumulation, then
+times ``scale``; ``p`` rounded to bf16 for ``p·v``), float32 inputs to the
+CUDA cores in float32 throughout. The kernel and the plain version sum in
+other orders, so they agree within a tolerance, not bit for bit; the kernel
+uses no atomics, so a repeated launch gives the same bits.
 """
 from __future__ import annotations
 
@@ -34,11 +38,13 @@ MAX_HEAD_DIM = 256  # the widest head of any config (gemma, recurrentgemma)
 # reaches the card). Callers reset it to 0 and read it around a run.
 launches = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The C entry of each dtype: bfloat16 runs the tensor-core body, float32 the
+# CUDA-core body. Both take _ARGTYPES.
+_ENTRIES = {torch.float32: "flash_attention_f32_launch", torch.bfloat16: "flash_attention_bf16_launch"}
 
 
 def _validate(q, k, v):
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _ENTRIES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype:
@@ -99,7 +105,7 @@ def flash_attention_ref(
 # The kernel
 # ---------------------------------------------------------------------------
 _ARGTYPES = (
-    [ctypes.c_int] * 7  # dtype, B, Hq, Hkv, Sq, Sk, D
+    [ctypes.c_int] * 6  # B, Hq, Hkv, Sq, Sk, D
     + [ctypes.c_longlong] * 9  # (batch, head, seq) strides of q, k, v
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float]
     # scale, causal, has_window, window, has_softcap, softcap
@@ -108,14 +114,36 @@ _ARGTYPES = (
 )
 
 
-def _library():
+def _library(dtype):
     from repro_torch.kernels import _build
 
-    fn = _build.load("flash_attention").flash_attention_launch
+    fn = getattr(_build.load("flash_attention"), _ENTRIES[dtype])
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _tma_rows(t):
+    """``t`` with rows the tensor-core body's TMA loads can take.
+
+    TMA needs a 16-byte aligned base and (batch, head, seq) strides that are
+    positive multiples of 16 bytes (8 bf16 elements; extents of 1 do not
+    count), so D a multiple of 8 too. Other inputs are copied into zero-padded rows of
+    ``ceil(D / 8) · 8`` columns; the zeros add nothing to either product.
+    """
+    d = t.shape[3]
+    if d % 8 == 0 and t.data_ptr() % 16 == 0 and all(
+        t.stride(i) > 0 and t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1
+    ):
+        return t
+    rows = t.new_zeros((*t.shape[:3], -(-d // 8) * 8))
+    rows[..., :d] = t
+    return rows
 
 
 def _launch(q, k, v, causal, window, softcap, scale):
@@ -129,18 +157,19 @@ def _launch(q, k, v, causal, window, softcap, scale):
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM} is not supported by the kernel")
     if max(b * hq, sq, sk) >= 2**31:
         raise ValueError("flash_attention indexes rows with int32: B·Hq, Sq and Sk must be < 2**31")
-    launch = _library()  # builds csrc/flash_attention.cu at first use
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    launch = _library(q.dtype)  # builds csrc/flash_attention.cu at first use
+    out = q.new_empty((b, hq, sq, d))
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        q, k, v = _tma_rows(q), _tma_rows(k), _tma_rows(v)
     strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
     err = launch(
-        _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, *strides,
+        b, hq, hkv, sq, sk, d, *strides,
         float(scale), int(causal), int(window is not None),
         0 if window is None else int(window),
         int(softcap is not None), 0.0 if softcap is None else float(softcap),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _stream(q),
     )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")

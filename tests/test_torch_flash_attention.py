@@ -163,3 +163,195 @@ def test_bad_inputs_raise(shapes, dtypes, err):
     q, k, v = (torch.zeros(s, dtype=dtypes or torch.float32) for s in shapes)
     with pytest.raises(err):
         tfa.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core body's numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+TC_KEYS = 64  # keys per K/V tile of the tensor-core body
+
+
+def _tc_emulation(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
+    """The bf16 body's arithmetic in float32 on the CPU, tile for tile.
+
+    q·kᵀ from the bf16 inputs as they are (each product is exact in float32)
+    summed in float32, times ``scale`` after the product; the online softmax
+    over 64-key tiles as the kernel runs it; ``p`` rounded to bf16 for p·v
+    only (``l`` sums the float32 ``p``); the output rounded to bf16. Only the
+    order of the float32 sums inside each product differs from the card.
+    """
+    neg_inf = -1e30
+    _, hq, sq, d = q.shape
+    sk = k.shape[2]
+    group = hq // k.shape[1]
+    scale = d**-0.5 if scale is None else scale
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    m = torch.full(qf.shape[:3], neg_inf)
+    l = torch.zeros(qf.shape[:3])
+    acc = torch.zeros(qf.shape)
+    q_pos = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, TC_KEYS):
+        ks = slice(k0, min(k0 + TC_KEYS, sk))
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, ks]) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = torch.arange(ks.start, ks.stop)[None, :]
+        vis = torch.ones((sq, ks.stop - ks.start), dtype=torch.bool)
+        if causal:
+            vis &= q_pos >= k_pos
+        if window is not None:
+            vis &= q_pos - k_pos < window
+        s = torch.where(vis, s, torch.tensor(neg_inf))
+        m_new = torch.maximum(m, s.amax(-1))
+        dead = m_new <= neg_inf / 2
+        alpha = torch.where(dead, torch.tensor(1.0), torch.exp(m - m_new))
+        m_sub = torch.where(dead, torch.tensor(0.0), m_new)
+        p = torch.where(vis, torch.exp(s - m_sub[..., None]), torch.tensor(0.0))
+        l = alpha * l + p.sum(-1)
+        acc = alpha[..., None] * acc + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf[:, :, ks]
+        )
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(torch.bfloat16)
+
+
+TC_CASES = [(s, {}) for s in SHAPES] + [
+    ((1, 8, 1, 128, 128, 256), {}),  # gemma-2b's head: D 256, 8 query heads on one KV head
+    ((1, 4, 2, 200, 200, 64), {"window": 48, "softcap": 30.0}),
+]
+
+
+@pytest.mark.parametrize(
+    "shape,kw", TC_CASES, ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else str(c)
+)
+def test_tensor_core_numerics_fit_the_bf16_bound(shape, kw):
+    """bf16 q·k on the tensor cores and p rounded to bf16 for p·v stay inside
+    3e-2 of the plain version and of the JAX kernel (interpret mode)."""
+    kw = {"causal": True, **kw}
+    arrays = _qkv(*shape, seed=shape[3] * 3 + shape[5])
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    got = _tc_emulation(tq, tk, tv, **kw).float().numpy()
+    plain = tfa.flash_attention_ref(tq, tk, tv, **kw).float().numpy()
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in arrays)
+    kernel = np.asarray(j_flash(jq, jk, jv, block_q=32, block_k=32, interpret=True, **kw), np.float32)
+    np.testing.assert_allclose(got, plain, rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(got, kernel, rtol=3e-2, atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# The wrapper's dispatch, with the library replaced by a fake
+# ---------------------------------------------------------------------------
+class _FakeEntry:
+    """Stands in for a ctypes function of the built library."""
+
+    def __init__(self, name, calls, err=0):
+        self.name, self.calls, self.err = name, calls, err
+        self.argtypes = None
+        self.restype = None
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        return self.err
+
+
+def _fake_library(monkeypatch, err=0):
+    from repro_torch.kernels import _build
+
+    calls = []
+    lib = type("FakeLib", (), {})()
+    for name in tfa._ENTRIES.values():
+        setattr(lib, name, _FakeEntry(name, calls, err))
+    monkeypatch.setattr(_build, "load", lambda source: lib)
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+
+    def no_fallback(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(tfa, "flash_attention_ref", no_fallback)
+    return calls
+
+
+@pytest.mark.parametrize(
+    "dtype,entry",
+    [(torch.bfloat16, "flash_attention_bf16_launch"), (torch.float32, "flash_attention_f32_launch")],
+    ids=["bfloat16-tensor_cores", "float32-cuda_cores"],
+)
+def test_dtype_reaches_its_entry(dtype, entry, monkeypatch):
+    calls = _fake_library(monkeypatch)
+    q, k, v = (
+        torch.from_numpy(a).to(dtype).as_subclass(_OnCuda) for a in _qkv(1, 4, 2, 16, 16, 32, seed=2)
+    )
+    before = tfa.launches
+    out = tfa.flash_attention(q, k, v, causal=True, window=8, softcap=30.0)
+    assert [name for name, _ in calls] == [entry]
+    args = calls[0][1]
+    assert len(args) == len(tfa._ARGTYPES)
+    assert args[:6] == (1, 4, 2, 16, 16, 32)
+    assert tfa.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+
+
+def _c_params(text, macro):
+    body = text.split(f"#define {macro}", 1)[1].split("\n\n", 1)[0]
+    return [p.strip() for p in body.replace("\\", " ").split(",")]
+
+
+def test_argtypes_match_the_c_signature():
+    import ctypes
+    from pathlib import Path
+
+    text = (Path(tfa.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    params = _c_params(text, "FLASH_PARAMS")
+    for entry in tfa._ENTRIES.values():
+        assert f'extern "C" int {entry}(FLASH_PARAMS)' in text
+    assert len(params) == len(tfa._ARGTYPES) == 26
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+    for param, argtype in zip(params, tfa._ARGTYPES):
+        c_type = param.rsplit(" ", 1)[0].strip()
+        want = ctypes.c_void_p if "*" in param else kinds[c_type]
+        assert argtype is want, param
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_launch_error_raises_never_falls_back(dtype, monkeypatch):
+    calls = _fake_library(monkeypatch, err=700)  # cudaErrorIllegalAddress
+    q, k, v = (torch.from_numpy(a).to(dtype).as_subclass(_OnCuda) for a in _qkv(1, 2, 1, 8, 8, 16, seed=4))
+    before = tfa.launches
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tfa.flash_attention(q, k, v)
+    assert len(calls) == 1 and tfa.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_failed_build_raises_never_falls_back(dtype, monkeypatch):
+    from repro_torch.kernels import _build
+
+    _fake_library(monkeypatch)
+
+    def failed_build(source):
+        raise RuntimeError(f"nvcc failed to build {source}.cu (exit 1)")
+
+    monkeypatch.setattr(_build, "load", failed_build)
+    q, k, v = (torch.from_numpy(a).to(dtype).as_subclass(_OnCuda) for a in _qkv(1, 2, 1, 8, 8, 16, seed=6))
+    before = tfa.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tfa.flash_attention(q, k, v)
+    assert tfa.launches == before
+
+
+def test_tma_rows_pass_aligned_inputs_and_pad_the_rest():
+    """The bf16 body's TMA loads take (batch, head, seq) strides as they are
+    when rows start 16-byte aligned; other inputs are copied into rows padded
+    with zeros to a multiple of 8 columns."""
+    bshd = torch.randn(2, 30, 8, 256).to(torch.bfloat16).transpose(1, 2)  # as attn_apply passes
+    assert tfa._tma_rows(bshd) is bshd
+    odd = torch.randn(1, 2, 5, 20).to(torch.bfloat16)  # D = 20: 40-byte rows
+    padded = tfa._tma_rows(odd)
+    assert padded.shape == (1, 2, 5, 24) and padded.is_contiguous()
+    assert torch.equal(padded[..., :20], odd) and not padded[..., 20:].any()
+    expanded = torch.randn(1, 1, 7, 32).to(torch.bfloat16).expand(3, 2, 7, 32)  # stride 0
+    copied = tfa._tma_rows(expanded)
+    assert copied is not expanded and torch.equal(copied, expanded)
+    assert all(copied.stride(i) > 0 and copied.stride(i) % 8 == 0 for i in range(3))

@@ -91,6 +91,15 @@ def test_lm_entry_points_without_a_device_raise_without_cuda(monkeypatch):
     assert Model(cfg, device="cpu").init(0).device.type == "cpu"
 
 
+def test_bench_flash_without_cuda_exits_before_timing(monkeypatch):
+    """The B3 timing script measures the card or nothing: no CPU numbers."""
+    from repro_torch.launch import bench_flash
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench_flash.main([])
+
+
 class _OnCuda(torch.Tensor):
     """A CPU tensor that reports a CUDA device, to drive the wrapper's CUDA path."""
 

@@ -286,6 +286,9 @@ B3_CASES = [
     ((1, 16, 8, 200, 200, 256), dict(causal=True, window=64, softcap=50.0)),  # gemma2
     ((1, 40, 8, 100, 100, 128), dict(causal=True)),  # qwen2.5-14b
     ((2, 4, 2, 50, 50, 16), dict(causal=True, scale=0.5)),
+    ((1, 4, 2, 200, 200, 128), dict(causal=True)),  # Sq not a multiple of the 128-row q block
+    ((1, 4, 2, 128, 100, 64), dict(causal=True)),  # Sk not a multiple of the 64-key tile
+    ((1, 2, 1, 70, 70, 20), dict(causal=True)),  # D not a multiple of 8: bf16 rows padded
 ]
 
 
@@ -320,6 +323,38 @@ def test_flash_attention_takes_strided_inputs(dev):
     got = fa.flash_attention(q, k, v, causal=True)
     want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
     assert torch.equal(got, want)
+
+
+def _bshd(shapes, dtype, dev, seed):
+    """q, k, v made (B, S, H, D) and transposed to (B, H, S, D), as attn_apply passes them."""
+    rng = np.random.default_rng(seed)
+    return [
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype).to(dev).transpose(1, 2)
+        for s in shapes
+    ]
+
+
+@pytest.mark.parametrize("batch,length", [(8, 1024), (4, 2048)])
+def test_flash_attention_gemma_2b_buckets_bf16(batch, length, dev):
+    """gemma-2b's two serving buckets (Hq 8 on one KV head, D 256, causal) in bf16."""
+    q, k, v = _bshd([(batch, length, h, 256) for h in (8, 1, 1)], torch.bfloat16, dev, length)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = B3_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_bf16_repeat_and_strided_bitwise(dev):
+    """The tensor-core body: a repeat launch and contiguous copies give the same bits."""
+    q, k, v = _bshd([(2, 300, h, 256) for h in (8, 1, 1)], torch.bfloat16, dev, 11)
+    kw = dict(causal=True, window=200, softcap=50.0)
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    packed = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, packed)
 
 
 def test_lm_prefill_launches_flash_attention_per_layer(dev):
