@@ -14,10 +14,12 @@ Phases, each printing one JSON line:
    mma.sync); the run fails if there are none.
 2. kernel_vs_plain: the tile-sweep kernel against its plain PyTorch version
    on the card — R-MAT scale 14 and a zipf graph, P in {4, 16}, adaptive and
-   subshard packing, all six programs, weighted and unweighted, K=1 full
-   sweeps and K=8 with stacked aux, a partial row_active and a selective
-   tile list. Tolerance: none, the results must be bitwise equal, and a
-   second launch must give the same bits.
+   subshard packing, and a src_sorted build of the R-MAT graph (subshard
+   packing, runs reached through the edge permutation), all six programs,
+   weighted and unweighted, K=1 full sweeps and K=8 with stacked aux, a
+   partial row_active and a selective tile list. Tolerance: none, the
+   results must be bitwise equal, and a second launch must give the same
+   bits.
 3. main_path: R-MAT scale 22, edge factor 16, seed 0, P=16 (the paper's
    live-journal at its own size) through ``GraphSession.run`` for PageRank
    under SPU/DPU/MPU and ``run_batch`` of 8 BFS roots. Checks: the kernel
@@ -27,12 +29,21 @@ Phases, each printing one JSON line:
    run bitwise.
 4. timing: the kernel, its plain version and one ``torch.sparse.mm`` of the
    same PageRank gather-reduce (the yardstick, used nowhere in the port),
-   at the main path's shapes.
+   at the main path's shapes. Before it, src_sorted_path: R-MAT scale 18,
+   P=8, built src_sorted, through ``GraphSession(g)`` (execution "auto")
+   for 10 PageRank sweeps: one B1 launch per sweep, bitwise equal to the
+   same run with the plain version; beside it, the destination-sorted
+   build's ms per sweep.
 5. dsss_spmv_vs_plain (after phase 2): the sub-shard ToHub kernel against
    its plain version on the card — the JAX tests' five shapes, slots out of
    order, and every sub-shard of R-MAT scale 14 (P=4) through
    ``GraphSession.kernel_operands``; mul/sum, add/min, add/max in float32
-   and bfloat16. Bitwise, and a second launch gives the same bits.
+   and bfloat16. Then the pass entry (``subshard_update_pass``): the same
+   shapes plus a hand-made sub-shard (a run across blocks, gaps, a jump past
+   the window, NaN and -0.0 contribs) in one pass, and every sub-shard of
+   R-MAT 14 and of its src_sorted build in one pass, against the plain pass
+   and against one ``subshard_update`` per sub-shard. Bitwise, and a second
+   launch gives the same bits.
 6. per_block_path: the same scale-22 graph through
    ``GraphSession(..., execution="per_block")``: PageRank under
    SPU/DPU/MPU/fused, 10 sweeps, and ``run_batch`` of the 8 BFS roots.
@@ -43,13 +54,16 @@ Phases, each printing one JSON line:
    plain PyTorch (ordered ``segment_reduce`` folds), so it launches neither
    kernel; the counts are read to show that.
 7. subshard_kernel_path: one PageRank sweep at scale 22 built from
-   ``kernel_operands`` + ``subshard_update`` over every non-empty sub-shard
-   (one kernel launch each), against the session's sweep within rtol 1e-5.
-8. dsss_spmv timing: a full pass over all sub-shards — kernel, plain
-   version, bound, and one ``torch.sparse.mm`` CSR SpMV of the global
-   hub-slot × source-vertex matrix (the yardstick). The plain pass's hub
-   vectors are held against two kernel passes, bitwise, for every
-   sub-shard.
+   ``kernel_operands`` over every non-empty sub-shard, twice: through the
+   pass entry (``ops.prepare_subshard_pass`` once, then one call) and
+   through ``subshard_update`` (one call each). Both against the session's
+   sweep within rtol 1e-5, and against each other bitwise.
+8. dsss_spmv timing: a full pass over all sub-shards — both forms (CUDA
+   events and host clock), the plain version, the bound, and one
+   ``torch.sparse.mm`` CSR SpMV of the global hub-slot × source-vertex
+   matrix (the yardstick); each kernel's launches and mean device time per
+   launch in both forms (torch.profiler). The plain pass's hub vectors are held against two
+   runs of each form, bitwise, for every sub-shard.
 9. flash_attention_vs_plain: the flash-attention kernel (B3) against its
    plain version (a materialized float32 softmax) on the card — the JAX
    tests' cases (five shapes, windows, softcaps, non-causal), ragged
@@ -76,6 +90,9 @@ Phases, each printing one JSON line:
     equal, or part only where the top-2 logit gap is below 1e-4 of the
     logit.
 
+Before the card's line, the ``kernels`` line gives each kernel's launches
+on its path, time, plain time, bound and library time; B2's are the pass
+entry's, with ``calls_ms``/``calls_launches`` for the per-call form.
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 and the script exits non-zero. Without a CUDA device it exits non-zero
 before printing any result.
@@ -120,6 +137,111 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# -- kernel B2's pass entry ------------------------------------------------
+def b2_bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def b2_edge_case_pass(kops, dev, dtype, gather_op, reduce):
+    """The JAX tests' five shapes, slots out of order, and a hand-made sub-shard, as one pass.
+
+    The hand-made one has a run across three blocks, slots no edge reaches,
+    a jump past the 512-slot window and slots past its last edge; two
+    sources lie outside the first interval (NaN contribs); under a sum, zero
+    weights meet negative and -0.0 values (-0.0 contribs).
+    """
+    ops, isizes, slots = [], [], []
+    shapes = [(64, 100, 32, True), (300, 2000, 150, True), (128, 513, 128, True),
+              (1000, 4096, 999, True), (16, 8, 4, True), (300, 2000, 150, False)]
+    for isize, e, nslots, sorted_slots in shapes:
+        r = np.random.default_rng(e + isize)
+        src_local = r.integers(0, isize, e).astype(np.int32)
+        hub_inv = r.integers(0, nslots, e).astype(np.int32)
+        if sorted_slots:
+            hub_inv = np.sort(hub_inv)
+        w = r.random(e).astype(np.float32) + 0.1
+        ops.append(kops.prepare_subshard_operands(
+            src_local, hub_inv, w, dtype, gather_op=gather_op, reduce=reduce, device=dev))
+        isizes.append(isize)
+        slots.append(nslots)
+    r = np.random.default_rng(7)
+    hub_inv = np.concatenate([
+        np.full(1400, 3), np.arange(4, 300), np.full(700, 900), np.arange(1000, 1604)
+    ]).astype(np.int32)
+    w = r.random(3000).astype(np.float32) + 0.1
+    if reduce == "sum":
+        w[::3] = 0.0
+    ops.append(kops.prepare_subshard_operands(
+        r.integers(0, 50, 3000).astype(np.int32), hub_inv, w, dtype,
+        gather_op=gather_op, reduce=reduce, device=dev))
+    isizes.append(50)
+    slots.append(1800)
+    src_idx = ops[0][0].clone()
+    src_idx[[5, 40]] = torch.tensor([70, -2], dtype=torch.int32, device=dev)
+    ops[0] = (src_idx, *ops[0][1:])
+    vals = r.random(sum(isizes)).astype(np.float32) + 0.5
+    vals[::7] *= -1
+    vals[::11] = -0.0
+    sp = kops.prepare_subshard_pass(
+        ops, np.cumsum([0] + isizes[:-1]).tolist(), isizes, slots, gather_op=gather_op, reduce=reduce,
+    )
+    return sp, torch.from_numpy(vals).to(dtype).to(dev)
+
+
+def b2_pass_case(dk, vals, sp, label) -> float:
+    """The pass == its plain version == one subshard_update per sub-shard, bitwise, twice."""
+    hubs, offsets = dk.subshard_update_pass(vals, sp)
+    again, _ = dk.subshard_update_pass(vals, sp)
+    want, _ = dk.subshard_update_pass_ref(vals, sp)
+    torch.cuda.synchronize()
+    check(torch.equal(b2_bits(hubs), b2_bits(again)), f"dsss_spmv pass not deterministic: {label}")
+    check(torch.equal(b2_bits(hubs), b2_bits(want)), f"dsss_spmv pass != plain: {label}")
+    fb = sp.first_block
+    for k, (src_off, isize, num_slots, _) in enumerate(sp.meta.tolist()):
+        e = slice(int(fb[k]) * dk.E_BLK, int(fb[k + 1]) * dk.E_BLK)
+        one = dk.subshard_update(
+            vals[src_off:src_off + isize], sp.src_idx[e], sp.hub_inv[e], sp.weights[e],
+            sp.block_base[int(fb[k]):int(fb[k + 1])], num_slots, gather_op=sp.gather_op, reduce=sp.reduce,
+        )
+        check(torch.equal(b2_bits(one), b2_bits(hubs[offsets[k]:offsets[k + 1]])),
+              f"dsss_spmv pass != subshard_update on sub-shard {k}: {label}")
+    diff = (hubs.double() - want.double()).abs()
+    diff = diff[torch.isfinite(diff)]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def device_kernels(fn, reps: int = 5, width: int = 60) -> dict:
+    """Per kernel name, from torch.profiler over ``reps`` calls of ``fn`` after a
+    warm-up call: the launches the trace holds and their mean device µs.
+
+    A trace may miss some launches (a window of 5 passes once held 3), so a
+    total per call comes from CUDA events, not from here."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps), acc_events=True) as prof:
+        for _ in range(reps + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    seen: dict[str, list] = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA") and not e.name.startswith("ProfilerStep"):
+            seen.setdefault(e.name[:width], []).append(e.time_range.elapsed_us())
+    return {name: {"launches": len(us), "us_per_launch": sum(us) / len(us)} for name, us in seen.items()}
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host-clock ms per call of ``fn`` over ``reps`` calls, ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
 
 
 # -- the LM serving path (kernel B3) ---------------------------------------
@@ -531,18 +653,21 @@ def main() -> None:
     max_abs_err = 0.0
     t0 = time.perf_counter()
     before = ps.launches
-    for gname in ("rmat14", "zipf"):
-        src, dst = rmat(14, edge_factor=16, seed=1) if gname == "rmat14" else zipf(
-            1 << 14, 1 << 18, seed=2
+    src_sorted_cases = 0
+    for gname in ("rmat14", "zipf", "rmat14_src_sorted"):
+        src, dst = zipf(1 << 14, 1 << 18, seed=2) if gname == "zipf" else rmat(
+            14, edge_factor=16, seed=1
         )
+        src_sorted = gname.endswith("src_sorted")
         for weighted in (False, True):
             w = rng.random(src.shape[0]).astype(np.float32) + 0.01 if weighted else None
             el = degree_and_densify(src, dst, w, drop_self_loops=True)
             for P in (4, 16):
-                g = core.build_dsss(el, P)
-                for packing in ("adaptive", "subshard"):
+                g = core.build_dsss(el, P, src_sorted=src_sorted)
+                for packing in ("subshard",) if src_sorted else ("adaptive", "subshard"):
                     packed = g.packed_sweep(packing)
                     tiles = ps.prepare_packed_tiles(packed, has_weights=weighted, device=dev)
+                    check(("perm" in tiles) == src_sorted, f"{gname} P={P} {packing}: run permutation")
                     for prog in programs:
                         for K, stacked, partial in ((1, False, False), (8, True, True)):
                             attrs, acc, aux = state(prog, g, K, stacked, rng)
@@ -567,15 +692,14 @@ def main() -> None:
                             if diff.numel():
                                 max_abs_err = max(max_abs_err, float(diff.max()))
                             cases += 1
+                            src_sorted_cases += src_sorted
     emit(
-        "kernel_vs_plain", cases=cases, launches=ps.launches - before,
-        bitwise=True, max_abs_err=max_abs_err, seconds=time.perf_counter() - t0,
+        "kernel_vs_plain", cases=cases, src_sorted_cases=src_sorted_cases,
+        launches=ps.launches - before, bitwise=True, max_abs_err=max_abs_err,
+        seconds=time.perf_counter() - t0,
     )
 
     # -- phase 5: the sub-shard ToHub kernel against its plain version -------
-    def b2_bits(t):
-        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
-
     def b2_case(vals, ops, num_slots, gather_op, reduce, label):
         kw = dict(gather_op=gather_op, reduce=reduce)
         parts = dk.dsss_spmv_block_partials(vals, *ops, **kw)
@@ -627,9 +751,33 @@ def main() -> None:
                 u = sess14.host_blocks[(i, j)]["u"]
                 b2_max_abs_err = max(b2_max_abs_err, b2_case(vals, ops, u, gather_op, reduce, label))
                 b2_cases += 1
+    # The pass entry: the edge cases in one pass per semiring and dtype, and
+    # every sub-shard of R-MAT 14 (P = 4) and of its src_sorted build.
+    pass_cases = 0
+    el14 = degree_and_densify(src, dst, w14, drop_self_loops=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for gather_op, reduce in semirings:
+            sp, vals = b2_edge_case_pass(kops, dev, dtype, gather_op, reduce)
+            b2_max_abs_err = max(b2_max_abs_err, b2_pass_case(dk, vals, sp, f"edge cases {dtype} {gather_op}/{reduce}"))
+            pass_cases += 1
+            for src_sorted in (False, True):
+                gp = core.build_dsss(el14, 4, src_sorted=src_sorted)
+                sp_sess = core.GraphSession(gp, device=dev)
+                keys14 = sorted(sp_sess.block_keys)
+                sp = kops.prepare_subshard_pass(
+                    [sp_sess.kernel_operands(i, j, dtype, gather_op=gather_op, reduce=reduce) for i, j in keys14],
+                    [i * gp.interval_size for i, _ in keys14], [gp.interval_size] * len(keys14),
+                    [sp_sess.host_blocks[key]["u"] for key in keys14], gather_op=gather_op, reduce=reduce,
+                )
+                check(bool(sp.flags[0].all()) == src_sorted and (src_sorted or not sp.flags[0].any()),
+                      f"rmat14 src_sorted={src_sorted}: pass flags {sp.flags[0].tolist()}")
+                vals = torch.from_numpy(rng.random(gp.n_pad).astype(np.float32)).to(dtype).to(dev)
+                label = f"rmat14 pass src_sorted={src_sorted} {dtype} {gather_op}/{reduce}"
+                b2_max_abs_err = max(b2_max_abs_err, b2_pass_case(dk, vals, sp, label))
+                pass_cases += 1
     emit(
-        "dsss_spmv_vs_plain", cases=b2_cases, launches=dk.launches - before, bitwise=True,
-        max_abs_err=b2_max_abs_err, seconds=time.perf_counter() - t0,
+        "dsss_spmv_vs_plain", cases=b2_cases, pass_cases=pass_cases, launches=dk.launches - before,
+        bitwise=True, max_abs_err=b2_max_abs_err, seconds=time.perf_counter() - t0,
     )
     del sess14, g14
 
@@ -779,6 +927,49 @@ def main() -> None:
         device_us_per_sweep={k: v / res3.meters.iterations for k, v in top},
     )
 
+    # -- phase 3c: a src_sorted layout through the default execution ---------
+    # R-MAT scale 18, P = 8, built src_sorted (the GraphChi-like layout) and
+    # destination-sorted; GraphSession(g) defaults to execution="auto", which
+    # is kernel B1 on the card, reaching runs through the edge permutation.
+    t1 = time.perf_counter()
+    el18 = degree_and_densify(*rmat(18, edge_factor=16, seed=3), drop_self_loops=True)
+    s18 = {layout: core.GraphSession(core.build_dsss(el18, 8, src_sorted=layout == "src_sorted"))
+           for layout in ("src_sorted", "dst_sorted")}
+    plan18 = core.ExecutionPlan(pr, strategy="spu", max_iters=10, tol=0.0)
+    check(s18["src_sorted"].resolved_execution("spu") == "packed_kernel", "auto is not the kernel")
+    for s_ in s18.values():
+        s_.run(core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0))  # stage, warm
+    torch.cuda.synchronize()
+    tiles18 = s18["src_sorted"]._staged.packed_tiles("subshard", dev)
+    ps.launches = 0  # every count to 0 just before the src_sorted path
+    dk.launches = 0
+    fa.launches = 0
+    res18 = s18["src_sorted"].run(plan18)
+    torch.cuda.synchronize()
+    counts18 = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    check(counts18 == {"packed_sweep": 10, "dsss_spmv": 0, "flash_attention": 0},
+          f"src_sorted path launched {counts18}; want 10 packed_sweep launches")
+    dst18 = s18["dst_sorted"].run(plan18)
+    session_mod.packed_sweep_update = ps.packed_sweep_update_ref
+    try:
+        plain18 = s18["src_sorted"].run(plan18)
+    finally:
+        session_mod.packed_sweep_update = ps.packed_sweep_update
+    check(np.array_equal(res18.attrs.view(np.int32), plain18.attrs.view(np.int32)),
+          "src_sorted PageRank (kernel) != plain version bitwise over 10 sweeps")
+    total18 = float(res18.attrs.astype(np.float64).sum())
+    check(abs(total18 - 1.0) < 1e-4, f"src_sorted PageRank sums to {total18}")
+    emit(
+        "src_sorted_path", n=int(el18.n), m=int(el18.m), P=8, launches=counts18,
+        perm_edges=int(tiles18["perm"].shape[0]), runs=int(tiles18["run_start"].shape[0]),
+        bitwise_vs_plain=True, pr_sum=total18,
+        max_abs_diff_vs_dst_sorted=float(np.max(np.abs(res18.attrs.astype(np.float64) - dst18.attrs))),
+        ms_per_sweep={"src_sorted": 1e3 * res18.meters.wall_seconds / 10,
+                      "dst_sorted": 1e3 * dst18.meters.wall_seconds / 10},
+        seconds=time.perf_counter() - t1,
+    )
+    del s18, tiles18, el18
+
     # -- phase 4: timing at the main path's shapes ---------------------------
     attrs = torch.from_numpy(
         np.concatenate([ref, np.zeros(g.n_pad - n, np.float32)])
@@ -916,6 +1107,8 @@ def main() -> None:
     )
 
     # -- phase 7: one PageRank sweep from the sub-shard kernel -----------------
+    # Twice: through the pass entry (one launch per phase for all sub-shards)
+    # and through subshard_update (one call per sub-shard).
     isz = g.interval_size
     keys = sorted(pb.block_keys)
     staged = {}  # operands, hub destinations, and the source interval of each call
@@ -926,79 +1119,112 @@ def main() -> None:
             torch.from_numpy(blk["hub_dst"][: blk["u"]].astype(np.int64)).to(dev),
             blk["u"],
         )
+    t1 = time.perf_counter()
+    b2_staged = kops.prepare_subshard_pass(
+        [staged[key][0] for key in keys], [i * isz for i, _ in keys], [isz] * len(keys),
+        [staged[key][2] for key in keys], gather_op="mul", reduce="sum",
+    )
+    torch.cuda.synchronize()
+    b2_stage_s = time.perf_counter() - t1
+    check(not b2_staged.flags.any(), "a scale-22 sub-shard's slots or bases decrease")
     x0 = pr.init_attrs(g).to(dev)
     inv = aux["inv_out_degree"]
     contrib = x0 * inv
     dangling = float((x0 * aux["dangling"]).sum())
     torch.cuda.synchronize()
 
-    def kernel_sweep(update=kops.subshard_update):
-        accs = [torch.zeros(isz, device=dev) for _ in range(g.P)]
-        for i, j in keys:
-            ops_ij, hub_dst, u = staged[(i, j)]
-            hub = update(contrib[i * isz:(i + 1) * isz], *ops_ij, u, gather_op="mul", reduce="sum")
-            accs[j][hub_dst] = accs[j][hub_dst] + hub
-        return accs
+    def hubs_by_calls():
+        """The ToHub update of every sub-shard, one subshard_update call each."""
+        return [
+            kops.subshard_update(contrib[i * isz:(i + 1) * isz], *staged[(i, j)][0], staged[(i, j)][2],
+                                 gather_op="mul", reduce="sum")
+            for i, j in keys
+        ]
 
-    ps.launches = 0  # every count to 0 just before the sub-shard kernel path
+    def hubs_by_pass():
+        """The same hub vectors from one call of the pass entry."""
+        hubs, off = dk.subshard_update_pass(contrib, b2_staged)
+        return [hubs[off[k]:off[k + 1]] for k in range(len(keys))]
+
+    def sweep_from(hubs):
+        accs = [torch.zeros(isz, device=dev) for _ in range(g.P)]
+        for (i, j), hub in zip(keys, hubs):
+            hub_dst = staged[(i, j)][1]
+            accs[j][hub_dst] = accs[j][hub_dst] + hub
+        return (1 - pr.damping) / n + pr.damping * (torch.cat(accs) + dangling / n)
+
+    ps.launches = 0  # every count to 0 just before the pass entry's sweep
     dk.launches = 0
     fa.launches = 0
-    accs = kernel_sweep()
+    pass_hubs = hubs_by_pass()
+    torch.cuda.synchronize()
+    pass_launches = dk.launches  # just after
+    check(pass_launches == 1 and ps.launches == 0 and fa.launches == 0,
+          f"pass entry: {pass_launches} dsss_spmv launches, {ps.launches} packed_sweep, {fa.launches} flash")
+    ps.launches = 0  # every count to 0 just before the per-call sweep
+    dk.launches = 0
+    fa.launches = 0
+    call_hubs = hubs_by_calls()
     torch.cuda.synchronize()
     sub_launches = dk.launches  # just after
     check(sub_launches == len(keys), f"sub-shard path: {sub_launches} launches for {len(keys)} calls")
     check(ps.launches == 0 and fa.launches == 0, "the sub-shard path launched another kernel")
-    acc = torch.cat(accs)
-    swept = (1 - pr.damping) / n + pr.damping * (acc + dangling / n)
+    for k, (a, b) in enumerate(zip(pass_hubs, call_hubs)):
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"pass entry != subshard_update on scale-22 sub-shard {keys[k]}")
+    swept_pass, swept_calls = sweep_from(pass_hubs), sweep_from(call_hubs)
+    check(torch.equal(swept_pass.view(torch.int32), swept_calls.view(torch.int32)),
+          "sub-shard sweep: pass entry != subshard_update calls")
     one = sess.run(core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0)).attrs
-    swept_np = swept[:n].cpu().numpy()
+    swept_np = swept_pass[:n].cpu().numpy()
     sub_err = float(np.max(np.abs(swept_np.astype(np.float64) - one)))
     check(np.allclose(swept_np, one, rtol=1e-5, atol=1e-12),
           f"sub-shard kernel sweep off the session's by {sub_err}")
     emit(
-        "subshard_kernel_path", launches=sub_launches, subshards=len(keys),
-        max_abs_err_vs_session=sub_err, sum=float(swept_np.astype(np.float64).sum()),
+        "subshard_kernel_path", pass_launches=pass_launches, call_launches=sub_launches,
+        subshards=len(keys), blocks=int(b2_staged.block_base.shape[0]),
+        padded_edges=int(b2_staged.src_idx.shape[0]), pass_staging_s=b2_stage_s,
+        pass_equals_calls_bitwise=True, max_abs_err_vs_session=sub_err,
+        sum=float(swept_np.astype(np.float64).sum()),
     )
+    del pass_hubs, call_hubs, swept_pass, swept_calls
 
     # -- phase 8: dsss_spmv timing over a full pass ------------------------------
-    def b2_pass(update):
-        """The ToHub update of every sub-shard, nothing else: the hub vectors."""
-        return [
-            update(contrib[i * isz:(i + 1) * isz], *staged[(i, j)][0], staged[(i, j)][2],
-                   gather_op="mul", reduce="sum")
-            for i, j in keys
-        ]
+    def one_pass():
+        return dk.subshard_update_pass(contrib, b2_staged)
 
-    b2_ms = cuda_ms(lambda: b2_pass(kops.subshard_update), reps=10)
-    plain_hubs = []
-    b2_plain_ms = cuda_ms(lambda: plain_hubs.append(b2_pass(dk.subshard_update_ref)), reps=1, warm=0)
-    # The kernel against its plain version at the main path's shapes: every
+    b2_ms = cuda_ms(one_pass, reps=20)
+    b2_calls_ms = cuda_ms(hubs_by_calls, reps=10)
+    b2_wall_ms = host_ms(one_pass, reps=20)
+    b2_calls_wall_ms = host_ms(hubs_by_calls, reps=10)
+    plain = []
+    b2_plain_ms = cuda_ms(lambda: plain.append(dk.subshard_update_pass_ref(contrib, b2_staged)[0]), reps=1, warm=0)
+    # Both forms against the plain version at the main path's shapes: every
     # sub-shard, bitwise, twice (hub runs here span up to ~40 blocks).
+    plain_hubs = plain[0]
     for _ in range(2):
-        for k, (a, b) in enumerate(zip(b2_pass(kops.subshard_update), plain_hubs[0])):
-            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
-                  f"dsss_spmv != plain version on scale-22 sub-shard {keys[k]}")
-    del plain_hubs
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        b2_pass(kops.subshard_update)
-        torch.cuda.synchronize()
-    b2_device = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            b2_device[e.name[:60]] = b2_device.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
-    # Least bytes: each call's operands (src_idx, hub_inv, weights: 4·E_pad
-    # each; block_base 4·blocks), its source interval (4·isz) and its hub
-    # vector out (4·u). Operations: a multiply and an add per edge slot.
-    b2_bytes = 0
-    b2_ops = 0
-    for ops_ij, _, u in staged.values():
-        e_pad = int(ops_ij[0].shape[0])
-        b2_bytes += 12 * e_pad + 4 * int(ops_ij[3].shape[0]) + 4 * isz + 4 * u
-        b2_ops += 2 * e_pad
+        for form, hubs in (("pass entry", torch.cat(hubs_by_pass())), ("subshard_update", torch.cat(hubs_by_calls()))):
+            check(torch.equal(hubs.view(torch.int32), plain_hubs.view(torch.int32)),
+                  f"dsss_spmv ({form}) != plain version on the scale-22 pass")
+    del plain, plain_hubs
+    b2_device = device_kernels(one_pass)
+    b2_calls_device = device_kernels(hubs_by_calls, reps=3)
+    # Least bytes of the pass: the operands once (src_idx, hub_inv, weights:
+    # 4·E_pad each; block_base 4·blocks; the sub-shard tables), src_vals once
+    # (4·n_pad) and the hub vectors out (4·S). Operations: a multiply and an
+    # add per edge slot.
+    e_pad_total = int(b2_staged.src_idx.shape[0])
+    nb_total = int(b2_staged.block_base.shape[0])
+    S = int(b2_staged.out_offsets[-1])
+    tables = sum(t.numel() * 4 for t in b2_staged.tables.values())
+    b2_bytes = 12 * e_pad_total + 4 * nb_total + tables + 4 * g.n_pad + 4 * S
+    b2_ops = 2 * e_pad_total
     b2_bound_ms = 1e3 * max(b2_bytes / H100_BYTES_PER_S, b2_ops / H100_FP32_PER_S)
     b2_bound_by = "bytes" if b2_bytes / H100_BYTES_PER_S >= b2_ops / H100_FP32_PER_S else "operations"
+    # The per-call form's bound: each call reads its own source interval
+    # (4·isz per call).
+    b2_calls_bytes = 12 * e_pad_total + 4 * nb_total + 4 * isz * len(keys) + 4 * S
     slots = torch.from_numpy(g.global_hub_slots()).to(dev)
-    S = int(g.hub_offsets[-1, -1])
     hcrow = torch.zeros(S + 1, dtype=torch.int64, device=dev)
     hcrow[1:] = torch.cumsum(torch.bincount(slots, minlength=S), 0)
     hcol = torch.from_numpy(g.src.astype(np.int64)).to(dev)
@@ -1008,16 +1234,18 @@ def main() -> None:
     cvec = contrib[:, None]
     b2_library_ms = cuda_ms(lambda: torch.sparse.mm(hub_mat, cvec), reps=20)
     emit(
-        "dsss_spmv_timing", kernel_ms=b2_ms, plain_ms=b2_plain_ms, library_ms=b2_library_ms,
-        bound_ms=b2_bound_ms, min_bytes=b2_bytes, ops=b2_ops, calls=len(keys),
-        device_busy_ms_per_pass=sum(b2_device.values()) / 1e3,
-        device_us_per_pass=dict(sorted(b2_device.items(), key=lambda kv: -kv[1])[:6]),
+        "dsss_spmv_timing", kernel_ms=b2_ms, kernel_wall_ms=b2_wall_ms,
+        calls_ms=b2_calls_ms, calls_wall_ms=b2_calls_wall_ms, plain_ms=b2_plain_ms,
+        library_ms=b2_library_ms, bound_ms=b2_bound_ms, bound_by=b2_bound_by, min_bytes=b2_bytes,
+        calls_bound_ms=1e3 * b2_calls_bytes / H100_BYTES_PER_S, ops=b2_ops, calls=len(keys),
+        blocks=nb_total, device_kernels=b2_device, calls_device_kernels=b2_calls_device,
+        share_of_bound=b2_bound_ms / b2_ms, vs_library=b2_ms / b2_library_ms,
         hub_slots=S, nvidia_smi=smi,
     )
     del hub_mat, slots, hcol, hcrow
 
     # -- phases 9-11: the LM serving path and kernel B3 -----------------------
-    del pb, sess, tiles, staged, host_blocks, g, el, attrs, acc, aux, contrib
+    del pb, sess, tiles, staged, b2_staged, host_blocks, g, el, attrs, acc, aux, contrib
     torch.cuda.empty_cache()
     b3_check = flash_attention_vs_plain(dev)
     lm_cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas")
@@ -1042,13 +1270,15 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dsss_spmv.cu",
         "replaces": "src/repro/kernels/dsss_spmv.py:70",
-        "launches": sub_launches,
+        "launches": pass_launches,
         "max_abs_err": b2_max_abs_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
         "bound_ms": b2_bound_ms,
         "bound_by": b2_bound_by,
         "library_ms": b2_library_ms,
+        "calls_ms": b2_calls_ms,
+        "calls_launches": sub_launches,
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -123,6 +123,33 @@ class Meters:
         """The modelled fields only (see :data:`MODEL_METER_FIELDS`)."""
         return {f: getattr(self, f) for f in MODEL_METER_FIELDS}
 
+    @property
+    def bytes_read(self) -> float:
+        return self.bytes_read_edges + self.bytes_read_intervals + self.bytes_read_hubs
+
+    @property
+    def bytes_written(self) -> float:
+        return self.bytes_written_hubs + self.bytes_written_intervals
+
+    @property
+    def bytes_total(self) -> float:
+        return self.bytes_read + self.bytes_written
+
+    def per_iteration(self) -> "Meters":
+        """The byte fields divided by ``max(iterations, 1)``; the rest as is."""
+        k = max(self.iterations, 1)
+        out = dataclasses.replace(self)
+        # bytes_h2d and bytes_disk_read join this list with ROADMAP A7/A9.
+        for f in (
+            "bytes_read_edges",
+            "bytes_read_intervals",
+            "bytes_read_hubs",
+            "bytes_written_hubs",
+            "bytes_written_intervals",
+        ):
+            setattr(out, f, getattr(self, f) / k)
+        return out
+
     def mteps(self) -> float:
         """Million traversed edges per second."""
         if self.wall_seconds <= 0:

@@ -4,8 +4,9 @@
   (``csrc/packed_sweep.cu``), counterpart of the JAX package's Pallas
   ``repro.kernels.packed_sweep``.
 - :mod:`repro_torch.kernels.dsss_spmv` — the sub-shard ToHub update
-  (``csrc/dsss_spmv.cu``), counterpart of ``repro.kernels.dsss_spmv``;
-  :mod:`repro_torch.kernels.ops` stages its operands.
+  (``csrc/dsss_spmv.cu``), counterpart of ``repro.kernels.dsss_spmv``,
+  per sub-shard or for a whole pass; :mod:`repro_torch.kernels.ops` stages
+  its operands.
 - :mod:`repro_torch.kernels.flash_attention` — online-softmax attention
   (``csrc/flash_attention.cu``), counterpart of
   ``repro.kernels.flash_attention``; :func:`repro_torch.kernels.ops.attention`
@@ -15,7 +16,11 @@
 Kernels are built from ``csrc/`` at first use (:mod:`._build`); importing
 this package builds nothing.
 """
-from repro_torch.kernels.dsss_spmv import dsss_spmv_block_partials, subshard_update
+from repro_torch.kernels.dsss_spmv import (
+    dsss_spmv_block_partials,
+    subshard_update,
+    subshard_update_pass,
+)
 from repro_torch.kernels.packed_sweep import (
     packed_sweep_update,
     packed_sweep_update_ref,
@@ -28,4 +33,5 @@ __all__ = [
     "prepare_packed_tiles",
     "dsss_spmv_block_partials",
     "subshard_update",
+    "subshard_update_pass",
 ]

@@ -34,6 +34,12 @@
 // design keeps the gathers independent across threads so many are in flight;
 // tiling the gathers through shared memory (TMA) is left for later work.
 //
+// Layouts whose runs are not contiguous (subshard tiles of a src_sorted graph)
+// come with perm, the valid flat edge positions stably sorted by run: run r's
+// edges are then perm[run_start[r] .. run_end[r]), still in ascending edge
+// order, and phase 1 reads edge perm[i] where it would read edge i. perm is
+// null for destination-sorted layouts, which read edge i as before.
+//
 // Exactness: the build uses --fmad=false and the float operations are written
 // as __fmul_rn/__fadd_rn, so v*inv*w is two rounded products and never an FMA.
 // Masked edges fold as the identity, exactly as in the plain version.
@@ -151,6 +157,7 @@ struct Args {
   const int* dst_ptr;
   const int* dst_runs;
   const int* long_runs;
+  const int* perm;  // nullptr: runs are contiguous flat spans
   const unsigned char* tile_sel;  // nullptr: every tile selected
   const unsigned char* row_active;
   const void* aux0;
@@ -194,7 +201,10 @@ __global__ void __launch_bounds__(kThreads)
   const T* attrs = static_cast<const T*>(a.attrs) + (size_t)k * a.n_pad;
   EdgeCtx c = edge_ctx(a, k);
   T p = Op::fill();
-  for (int e = b; e < end; ++e) p = combine<Op::kReduce>(p, edge_value<Op>(a, attrs, c, e));
+  for (int i = b; i < end; ++i) {
+    const int e = a.perm != nullptr ? a.perm[i] : i;
+    p = combine<Op::kReduce>(p, edge_value<Op>(a, attrs, c, e));
+  }
   static_cast<T*>(a.partial)[(size_t)k * a.R + r] = p;
 }
 
@@ -215,8 +225,9 @@ __global__ void __launch_bounds__(kThreads)
   EdgeCtx c = edge_ctx(a, k);
   T p = Op::fill();
   for (int base = b; base < end; base += 32) {
-    int e = base + lane;
-    T x = e < end ? edge_value<Op>(a, attrs, c, e) : Op::ident();
+    int i = base + lane;
+    T x = Op::ident();
+    if (i < end) x = edge_value<Op>(a, attrs, c, a.perm != nullptr ? a.perm[i] : i);
     int n = min(32, end - base);
     for (int j = 0; j < n; ++j) p = combine<Op::kReduce>(p, __shfl_sync(kFullMask, x, j));
   }
@@ -272,7 +283,7 @@ extern "C" int packed_sweep_launch(
     void* partial, const int* src, const int* dst, const float* w,
     const int* run_start, const int* run_end, const int* run_tile,
     const int* dst_ptr, const int* dst_runs, const int* long_runs,
-    const unsigned char* tile_sel, const unsigned char* row_active,
+    const int* perm, const unsigned char* tile_sel, const unsigned char* row_active,
     const void* aux0, const void* aux1, void* stream) {
   Args a;
   a.K = K;
@@ -295,6 +306,7 @@ extern "C" int packed_sweep_launch(
   a.dst_ptr = dst_ptr;
   a.dst_runs = dst_runs;
   a.long_runs = long_runs;
+  a.perm = perm;
   a.tile_sel = tile_sel;
   a.row_active = row_active;
   a.aux0 = aux0;

@@ -7,7 +7,10 @@ version. ``prepare_*`` pad a sub-shard's
 ⊕-identity weights and compute each block's base hub slot — arrays bitwise
 equal to the JAX package's — and put them on ``device`` (``None``: the CUDA
 card). :func:`subshard_update` runs the kernel on them
-(:mod:`repro_torch.kernels.dsss_spmv`).
+(:mod:`repro_torch.kernels.dsss_spmv`); :func:`prepare_subshard_pass`
+stages many sub-shards' operands once for
+:func:`~repro_torch.kernels.dsss_spmv.subshard_update_pass`, which runs them
+all in one launch per phase.
 """
 from __future__ import annotations
 
@@ -16,13 +19,14 @@ import torch
 
 from repro_torch.core.identities import padding_identity_value
 from repro_torch.device import resolve_device
-from repro_torch.kernels.dsss_spmv import E_BLK, subshard_update
+from repro_torch.kernels.dsss_spmv import E_BLK, SubshardPass, subshard_update
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
 __all__ = [
     "attention",
     "subshard_update",
     "prepare_subshard_operands",
+    "prepare_subshard_pass",
     "prepare_from_subshard",
     "prepare_from_host_block",
     "prepare_from_packed_tile",
@@ -74,6 +78,51 @@ def prepare_subshard_operands(
         as_i32(hub_inv),
         torch.from_numpy(w).to(dtype).to(dev),
         as_i32(block_base),
+    )
+
+
+def prepare_subshard_pass(
+    operands,
+    src_offsets,
+    isizes,
+    num_slots,
+    *,
+    gather_op: str,
+    reduce: str,
+) -> SubshardPass:
+    """Stage many sub-shards' kernel operands for one pass.
+
+    ``operands[k]`` is sub-shard k's ``(src_idx, hub_inv, weights,
+    block_base)`` as :func:`prepare_subshard_operands` (or
+    ``GraphSession.kernel_operands``) staged it for this semiring, all on
+    one device; the pass reads its source values from
+    ``src_vals[src_offsets[k]:src_offsets[k] + isizes[k]]`` and writes
+    ``num_slots[k]`` hub slots. The edge arrays are concatenated once;
+    :class:`SubshardPass` finds each sub-shard's flags on the device and
+    reads them back once.
+    """
+    n = len(operands)
+    if n == 0 or not len(src_offsets) == len(isizes) == len(num_slots) == n:
+        raise ValueError("give one source offset, interval size and slot count per sub-shard")
+    dev = operands[0][0].device
+    dtype = operands[0][2].dtype
+    for k, ops in enumerate(operands):
+        src_idx, hub_inv, w, base = ops
+        e_pad = src_idx.shape[0]
+        if e_pad == 0 or e_pad % E_BLK or base.shape != (e_pad // E_BLK,):
+            raise ValueError(f"sub-shard {k}: operands are not padded to {E_BLK}-edge blocks")
+        if any(t.device != dev for t in ops) or w.dtype != dtype:
+            raise ValueError(f"sub-shard {k}: operands differ in device or dtype from sub-shard 0")
+    slots = np.asarray(num_slots, np.int64)
+    blocks = np.array([ops[3].shape[0] for ops in operands], np.int64)
+    return SubshardPass(
+        *(torch.cat([ops[c] for ops in operands]) for c in range(4)),
+        first_block=np.concatenate([[0], np.cumsum(blocks)]),
+        meta=np.stack([
+            np.asarray(src_offsets, np.int64), np.asarray(isizes, np.int64), slots,
+            np.cumsum(slots) - slots,
+        ], axis=1),
+        gather_op=gather_op, reduce=reduce,
     )
 
 

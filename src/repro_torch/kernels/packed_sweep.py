@@ -19,7 +19,8 @@ no atomics, so a run repeated gives the same bits too.
 
 The kernel needs a run index that :func:`prepare_packed_tiles` builds once
 per layout on the host: each run's edge span, its tile and destination,
-and a destination → runs CSR in ascending run order.
+a destination → runs CSR in ascending run order, and, on a ``src_sorted``
+layout whose runs are not contiguous, an edge permutation that makes them so.
 """
 from __future__ import annotations
 
@@ -77,14 +78,17 @@ def run_index(packed) -> dict[str, np.ndarray]:
     """The kernel's run index for one layout (host numpy, int32 leaves).
 
     Run ``r`` is slot ``r - run_base[t]`` of tile ``t``, numbered in
-    ascending (tile, slot) order. Returns each run's flat edge span
-    ``[run_start, run_end)`` (flat position ``t·T + e``), ``run_tile``,
-    ``run_target`` (its destination), the destination → runs CSR
-    ``dst_ptr``/``dst_runs`` (ascending run order within a destination),
-    and ``long_runs`` (runs longer than :data:`LONG_RUN`).
+    ascending (tile, slot) order. Returns each run's edge span
+    ``[run_start, run_end)``, ``run_tile``, ``run_target`` (its
+    destination), the destination → runs CSR ``dst_ptr``/``dst_runs``
+    (ascending run order within a destination), and ``long_runs`` (runs
+    longer than :data:`LONG_RUN`).
 
-    Raises :class:`ValueError` when a run's edges are not contiguous,
-    as in subshard tiles of a ``src_sorted`` graph.
+    Where every run's edges are contiguous (destination-sorted layouts),
+    a span is of flat positions ``t·T + e``. Where they are not (subshard
+    tiles of a ``src_sorted`` graph), the index also holds ``perm``: the
+    valid flat positions stably sorted by run, so run ``r``'s edges are
+    ``perm[run_start[r]:run_end[r]]``, still in ascending edge order.
     """
     NT, T = packed.src.shape
     if NT * T >= 2**31:
@@ -95,17 +99,19 @@ def run_index(packed) -> dict[str, np.ndarray]:
     valid = np.arange(T)[None, :] < packed.e_valid[:, None]
     flat = np.flatnonzero(valid)
     gid = (run_base[:-1, None] + packed.run_local)[valid]
+    perm = None
     if gid.size and np.any(np.diff(gid) < 0):
-        raise ValueError(
-            "runs are not contiguous in this tile layout (a src_sorted "
-            "graph): the CUDA tile sweep needs destination-sorted runs"
-        )
+        order = np.argsort(gid, kind="stable")
+        gid, perm = gid[order], flat[order]
     starts = np.flatnonzero(np.concatenate([[True], gid[1:] != gid[:-1]]))
     if not np.array_equal(gid[starts], np.arange(R)):
         raise ValueError("tile layout has run slots below u with no edges")
     ends = np.concatenate([starts[1:], [gid.size]])
-    run_start = flat[starts]
-    run_end = flat[ends - 1] + 1
+    if perm is None:
+        run_start = flat[starts]
+        run_end = flat[ends - 1] + 1
+    else:
+        run_start, run_end = starts, ends
     run_tile = np.repeat(np.arange(NT), u)
     slot = np.arange(R) - run_base[:-1][run_tile]
     run_target = packed.run_dst[run_tile, slot].astype(np.int64)
@@ -115,7 +121,7 @@ def run_index(packed) -> dict[str, np.ndarray]:
     )
     long_runs = np.flatnonzero(run_end - run_start > LONG_RUN)
     as32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
-    return {
+    index = {
         "run_start": as32(run_start),
         "run_end": as32(run_end),
         "run_tile": as32(run_tile),
@@ -124,24 +130,22 @@ def run_index(packed) -> dict[str, np.ndarray]:
         "dst_runs": as32(dst_runs),
         "long_runs": as32(long_runs),
     }
+    if perm is not None:
+        index["perm"] = as32(perm)
+    return index
 
 
 def prepare_packed_tiles(packed, *, has_weights: bool, device) -> dict:
-    """Upload the tile leaves (and, where runs are contiguous, the run index).
+    """Upload the tile leaves and the run index.
 
     The one upload of the layout: ``src``/``dst``/``run_local``/``run_dst``
     ``(NT, T)``, ``e_valid`` ``(NT,)``, ``weights`` when present, plus the
-    leaves of :func:`run_index`. A ``src_sorted`` layout gets no run index;
-    the plain version runs on it, the kernel refuses it.
+    leaves of :func:`run_index` (with ``perm`` on a ``src_sorted`` layout).
     """
     leaves = {k: getattr(packed, k) for k in TILE_LEAVES}
     if has_weights:
         leaves["weights"] = packed.weights
-    try:
-        leaves.update(run_index(packed))
-    except ValueError:
-        if packed.mode == "adaptive":
-            raise
+    leaves.update(run_index(packed))
     return {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
         for k, v in leaves.items()
@@ -262,7 +266,7 @@ def packed_sweep_update_ref(
 _ARGTYPES = (
     [ctypes.c_int] * 6  # prog, K, n_pad, R, L, isz
     + [ctypes.c_int, ctypes.c_longlong]  # long_min, aux_stride
-    + [ctypes.c_void_p] * 17  # tensors (see the C entry point)
+    + [ctypes.c_void_p] * 18  # tensors (see the C entry point)
     + [ctypes.c_void_p]  # stream
 )
 
@@ -306,8 +310,7 @@ def _launch(
     prog_id, dtype, aux_names = spec
     if "run_start" not in tiles:
         raise ValueError(
-            "tiles carry no run index (src_sorted layout); the CUDA tile "
-            "sweep needs destination-sorted runs"
+            "tiles carry no run index: stage them with prepare_packed_tiles"
         )
     dev = attrs_flat.device
     K, n_pad = attrs_flat.shape
@@ -323,6 +326,9 @@ def _launch(
     for name in ("run_start", "run_end", "run_tile", "dst_runs", "long_runs"):
         _check(tiles[name], name, torch.int32, dev)
     _check(tiles["dst_ptr"], "dst_ptr", torch.int32, dev, (n_pad + 1,))
+    perm = tiles.get("perm")
+    if perm is not None:
+        _check(perm, "perm", torch.int32, dev)
     if n_pad % P:
         raise ValueError(f"n_pad={n_pad} is not a multiple of P={P}")
     aux_ptrs = []
@@ -352,7 +358,7 @@ def _launch(
         tiles["run_start"].data_ptr(), tiles["run_end"].data_ptr(),
         tiles["run_tile"].data_ptr(), tiles["dst_ptr"].data_ptr(),
         tiles["dst_runs"].data_ptr(), tiles["long_runs"].data_ptr(),
-        _ptr(tile_sel), active.data_ptr(), aux_ptrs[0], aux_ptrs[1],
+        _ptr(perm), _ptr(tile_sel), active.data_ptr(), aux_ptrs[0], aux_ptrs[1],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

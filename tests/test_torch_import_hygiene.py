@@ -28,6 +28,7 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "import sys, repro_torch, repro_torch.convert, repro_torch.kernels._build\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.serving.llm_demo\n"
         "import repro_torch.kernels.flash_attention, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.ops, repro_torch.launch.bench_dsss\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, and the per-block path, on the card.
 
-The tile sweep (B1) and the sub-shard ToHub update (B2) must equal their
-plain PyTorch versions bit for bit, launch after launch. Flash attention
+The tile sweep (B1), on destination-sorted and src_sorted layouts, and the
+sub-shard ToHub update (B2), per sub-shard and as a whole pass, must equal
+their plain PyTorch versions bit for bit, launch after launch. Flash attention
 (B3) sums in another order than its plain version (a materialized
 softmax), so it is held within the JAX tests' own bounds for the Pallas
 kernel, ``rtol = atol = 2e-5`` in float32 and ``3e-2`` in bfloat16, and a
@@ -46,11 +47,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _graph(kind, P, weighted):
+def _graph(kind, P, weighted, src_sorted=False):
     src, dst = rmat(10, edge_factor=8, seed=3) if kind == "rmat" else zipf(3000, 20000, seed=4)
     w = np.random.default_rng(5).random(src.shape[0]).astype(np.float32) + 0.01
     return build_dsss(
-        degree_and_densify(src, dst, w if weighted else None, drop_self_loops=True), P
+        degree_and_densify(src, dst, w if weighted else None, drop_self_loops=True), P,
+        src_sorted=src_sorted,
     )
 
 
@@ -137,6 +139,69 @@ def test_session_on_card_matches_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# B1 on src_sorted layouts: runs reached through the edge permutation
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("prog", PROGRAMS, ids=lambda p: p.name)
+def test_kernel_bitwise_equals_plain_src_sorted(prog, weighted, dev):
+    g = _graph("rmat", 4, weighted, src_sorted=True)
+    packed = g.packed_sweep("subshard")
+    tiles = ps.prepare_packed_tiles(packed, has_weights=weighted, device=dev)
+    assert "perm" in tiles
+    rng = np.random.default_rng(11)
+    for K, stacked, partial in ((1, False, False), (8, True, True)):
+        attrs, acc, aux = _inputs(prog, g, K, stacked, rng, dev)
+        row = np.ones(g.P, bool)
+        idx = None
+        if partial:
+            row = rng.random(g.P) < 0.5
+            row[0] = True
+            idx = torch.from_numpy(
+                np.flatnonzero(rng.random(packed.num_tiles) < 0.6).astype(np.int32)
+            ).to(dev)
+        args = (prog, attrs, acc, aux, tiles, torch.from_numpy(row).to(dev), weighted, stacked, idx)
+        before = ps.launches
+        got = ps.packed_sweep_update(*args)
+        again = ps.packed_sweep_update(*args)
+        want = ps.packed_sweep_update_ref(*args)
+        torch.cuda.synchronize()
+        assert ps.launches == before + 2
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("execution", ["auto", "packed_kernel"])
+@pytest.mark.parametrize("strategy", ["spu", "dpu", "mpu"])
+def test_src_sorted_session_runs_the_kernel(strategy, execution, dev):
+    """A src_sorted graph's default session runs B1: BFS/SSSP give the CPU's bits,
+    PageRank the plain version's bits on the card, one launch per sweep."""
+    g = _graph("rmat", 4, True, src_sorted=True)
+    budget = 2 * g.interval_size * 4 * (g.P // 2)
+    card = GraphSession(g, memory_budget=budget, residency="device", execution=execution)
+    cpu = GraphSession(g, device="cpu", memory_budget=budget, residency="device")
+    plans = [ExecutionPlan(vp.BFS(), strategy=strategy, max_iters=g.n + 1, program_kwargs={"root": r})
+             for r in (0, 7)]
+    sssp = ExecutionPlan(vp.SSSP(), strategy=strategy, max_iters=g.n + 1, program_kwargs={"root": 1})
+    before = ps.launches
+    on_card = card.run_batch(plans)
+    assert ps.launches - before == on_card.iterations
+    for a, b in zip(on_card, cpu.run_batch(plans)):
+        np.testing.assert_array_equal(a.attrs, b.attrs)
+    np.testing.assert_array_equal(card.run(sssp).attrs.view(np.int32), cpu.run(sssp).attrs.view(np.int32))
+    pr = ExecutionPlan(vp.PageRank(), strategy=strategy, max_iters=12, tol=0.0)
+    before = ps.launches
+    got = card.run(pr)
+    assert ps.launches - before == 12
+    session_mod.packed_sweep_update = ps.packed_sweep_update_ref
+    try:
+        plain = card.run(pr)
+    finally:
+        session_mod.packed_sweep_update = ps.packed_sweep_update
+    np.testing.assert_array_equal(got.attrs.view(np.int32), plain.attrs.view(np.int32))
+    assert got.meters.model_dict() == cpu.run(pr).meters.model_dict()
+
+
+# ---------------------------------------------------------------------------
 # B2, the sub-shard ToHub update
 # ---------------------------------------------------------------------------
 B2_SHAPES = [(64, 100, 32), (300, 2000, 150), (128, 513, 128), (1000, 4096, 999), (16, 8, 4)]
@@ -202,6 +267,100 @@ def test_dsss_spmv_real_subshards(gather_op, reduce, dtype, dev):
         vals = torch.from_numpy(rng.random(g.interval_size).astype(np.float32)).to(dtype).to(dev)
         ops = sess.kernel_operands(i, j, dtype, gather_op=gather_op, reduce=reduce)
         _b2_bitwise(vals, ops, sess.host_blocks[(i, j)]["u"], gather_op, reduce)
+
+
+def _b2_pass_bitwise(vals, sp, dev):
+    """The pass == plain pass == one subshard_update per sub-shard, bitwise, twice."""
+    bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)  # noqa: E731
+    before = dk.launches
+    hubs, offsets = dk.subshard_update_pass(vals, sp)
+    again, _ = dk.subshard_update_pass(vals, sp)
+    want, want_offsets = dk.subshard_update_pass_ref(vals, sp)
+    torch.cuda.synchronize()
+    assert dk.launches == before + 2
+    assert offsets.tolist() == want_offsets.tolist()
+    assert torch.equal(bits(hubs), bits(want))
+    assert torch.equal(bits(hubs), bits(again))
+    fb = sp.first_block
+    for k, (src_off, isize, num_slots, _) in enumerate(sp.meta.tolist()):
+        e = slice(int(fb[k]) * dk.E_BLK, int(fb[k + 1]) * dk.E_BLK)
+        one = dk.subshard_update(
+            vals[src_off:src_off + isize], sp.src_idx[e], sp.hub_inv[e], sp.weights[e],
+            sp.block_base[int(fb[k]):int(fb[k + 1])], num_slots,
+            gather_op=sp.gather_op, reduce=sp.reduce,
+        )
+        assert torch.equal(bits(one), bits(hubs[offsets[k]:offsets[k + 1]]))
+    return hubs
+
+
+@pytest.mark.parametrize("dtype", B2_DTYPES, ids=str)
+@pytest.mark.parametrize("gather_op,reduce", SEMIRINGS)
+def test_dsss_spmv_pass_bitwise_equals_plain(gather_op, reduce, dtype, dev):
+    """The JAX tests' shapes, slots out of order, and a hand-made sub-shard in one pass.
+
+    The hand-made one has a run across three blocks, slots no edge reaches,
+    a jump past the window and slots past its last edge; two sources lie
+    outside the first interval (NaN contribs), and under a sum zero weights
+    meet negative and -0.0 values (-0.0 contribs).
+    """
+    ops, isizes, slots = [], [], []
+    for (isize, e, nslots), srt in [(shape, True) for shape in B2_SHAPES] + [((300, 2000, 150), False)]:
+        rng = np.random.default_rng(e + isize)
+        src_local = rng.integers(0, isize, e).astype(np.int32)
+        hub_inv = rng.integers(0, nslots, e).astype(np.int32)
+        if srt:
+            hub_inv = np.sort(hub_inv)
+        w = rng.random(e).astype(np.float32) + 0.1
+        ops.append(kops.prepare_subshard_operands(
+            src_local, hub_inv, w, dtype, gather_op=gather_op, reduce=reduce, device=dev))
+        isizes.append(isize)
+        slots.append(nslots)
+    rng = np.random.default_rng(7)
+    hub_inv = np.concatenate([
+        np.full(1400, 3), np.arange(4, 300), np.full(700, 900), np.arange(1000, 1604)
+    ]).astype(np.int32)
+    w = rng.random(3000).astype(np.float32) + 0.1
+    if reduce == "sum":
+        w[::3] = 0.0
+    ops.append(kops.prepare_subshard_operands(
+        rng.integers(0, 50, 3000).astype(np.int32), hub_inv, w, dtype,
+        gather_op=gather_op, reduce=reduce, device=dev))
+    isizes.append(50)
+    slots.append(1800)
+    src_idx = ops[0][0].clone()
+    src_idx[[5, 40]] = torch.tensor([70, -2], dtype=torch.int32, device=dev)
+    ops[0] = (src_idx, *ops[0][1:])
+    vals = rng.random(sum(isizes)).astype(np.float32) + 0.5
+    vals[::7] *= -1
+    vals[::11] = -0.0
+    sp = kops.prepare_subshard_pass(
+        ops, np.cumsum([0] + isizes[:-1]).tolist(), isizes, slots,
+        gather_op=gather_op, reduce=reduce,
+    )
+    assert sp.flags[0].tolist() == [0] * len(B2_SHAPES) + [1, 0]
+    hubs = _b2_pass_bitwise(torch.from_numpy(vals).to(dtype).to(dev), sp, dev)
+    assert bool(torch.isnan(hubs).any()) == (reduce == "sum")
+
+
+@pytest.mark.parametrize("dtype", B2_DTYPES, ids=str)
+@pytest.mark.parametrize("gather_op,reduce", SEMIRINGS)
+def test_dsss_spmv_pass_real_subshards(gather_op, reduce, dtype, dev):
+    """Every sub-shard of R-MAT scale 14 (P = 4) in one pass, and of its src_sorted build."""
+    src, dst = rmat(14, edge_factor=16, seed=1)
+    w = np.random.default_rng(2).random(src.shape[0]).astype(np.float32) + 0.01
+    el = degree_and_densify(src, dst, w, drop_self_loops=True)
+    for src_sorted in (False, True):
+        g = build_dsss(el, 4, src_sorted=src_sorted)
+        sess = GraphSession(g, device=dev)
+        keys = sorted(sess.block_keys)
+        sp = kops.prepare_subshard_pass(
+            [sess.kernel_operands(i, j, dtype, gather_op=gather_op, reduce=reduce) for i, j in keys],
+            [i * g.interval_size for i, _ in keys], [g.interval_size] * len(keys),
+            [sess.host_blocks[key]["u"] for key in keys], gather_op=gather_op, reduce=reduce,
+        )
+        assert bool(sp.flags[0].all()) == src_sorted
+        vals = torch.from_numpy(np.random.default_rng(3).random(g.n_pad).astype(np.float32))
+        _b2_pass_bitwise(vals.to(dtype).to(dev), sp, dev)
 
 
 # ---------------------------------------------------------------------------

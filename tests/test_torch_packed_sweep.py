@@ -44,20 +44,23 @@ PROGRAMS = {
     "reach": (jvp.ReachBackward(), tvp.ReachBackward()),
 }
 
-# (graph, P, weighted, packing, K, aux mode, partial row_active, selection, ref)
+# (graph, P, weighted, packing, K, aux mode, partial row_active, selection, ref,
+#  src_sorted)
 CASES = {
-    "rmat-k1-full": ("rmat", 4, False, "adaptive", 1, "shared", False, False, True),
-    "zipf-k3-shared-select": ("zipf", 8, True, "adaptive", 3, "shared", True, True, False),
-    "rmat-k3-stacked-select": ("rmat", 3, False, "subshard", 3, "stacked", True, True, False),
-    "zipf-k1-weighted-subshard": ("zipf", 4, True, "subshard", 1, "shared", True, False, True),
+    "rmat-k1-full": ("rmat", 4, False, "adaptive", 1, "shared", False, False, True, False),
+    "zipf-k3-shared-select": ("zipf", 8, True, "adaptive", 3, "shared", True, True, False, False),
+    "rmat-k3-stacked-select": ("rmat", 3, False, "subshard", 3, "stacked", True, True, False, False),
+    "zipf-k1-weighted-subshard": ("zipf", 4, True, "subshard", 1, "shared", True, False, True, False),
+    "rmat-k1-src-sorted": ("rmat", 4, True, "subshard", 1, "shared", False, False, True, True),
+    "zipf-k3-src-sorted-select": ("zipf", 4, False, "subshard", 3, "shared", True, True, False, True),
 }
 
 _GRAPHS: dict = {}
 
 
-def _graph(kind: str, P: int, weighted: bool):
+def _graph(kind: str, P: int, weighted: bool, src_sorted: bool = False):
     """The JAX package's graph and the port's copy of it (via convert)."""
-    key = (kind, P, weighted)
+    key = (kind, P, weighted, src_sorted)
     if key not in _GRAPHS:
         src, dst = (
             j_rmat(9, edge_factor=8, seed=3) if kind == "rmat"
@@ -67,7 +70,7 @@ def _graph(kind: str, P: int, weighted: bool):
             np.random.default_rng(5).random(src.shape[0]).astype(np.float32) + 0.01
             if weighted else None
         )
-        jg = j_build_dsss(j_densify(src, dst, w, drop_self_loops=True), P)
+        jg = j_build_dsss(j_densify(src, dst, w, drop_self_loops=True), P, src_sorted=src_sorted)
         fields = {f.name: getattr(jg, f.name) for f in dataclasses.fields(jg)}
         fields["edgelist"] = vars(jg.edgelist)
         _GRAPHS[key] = (jg, dsss_from_arrays(fields))
@@ -112,8 +115,8 @@ def _state(name, jprog, g, K, aux_mode, rng):
 
 
 def _inputs(name, case):
-    kind, P, weighted, packing, K, aux_mode, partial, select, _ = CASES[case]
-    jg, tg = _graph(kind, P, weighted)
+    kind, P, weighted, packing, K, aux_mode, partial, select, _, src_sorted = CASES[case]
+    jg, tg = _graph(kind, P, weighted, src_sorted)
     jprog, tprog = PROGRAMS[name]
     rng = np.random.default_rng(zlib.crc32(f"{name}/{case}".encode()))
     attrs, acc, aux = _state(name, jprog, jg, K, aux_mode, rng)
@@ -179,7 +182,7 @@ def test_plain_matches_jax_scan_bitwise(name, case):
     want = _run_jax(d)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
-    if CASES[case][-1]:
+    if CASES[case][8]:
         ref = np.asarray(
             j_ref(
                 d["jprog"], jnp.asarray(d["attrs"]), jnp.asarray(d["acc"]),
@@ -195,11 +198,15 @@ def _emulate_kernel(d):
     """The CUDA kernel's two phases, element by element, from the run index.
 
     Mirrors csrc/packed_sweep.cu: phase 1 folds each run over its edge
-    span from segment_fill_value; phase 2 folds each destination's runs
-    from the dst_ptr/dst_runs CSR, skipping runs of unselected tiles.
+    span from segment_fill_value, reading edge ``perm[i]`` for span
+    position ``i`` where the index has a permutation (``src_sorted``
+    layouts) and edge ``i`` where it has none; phase 2 folds each
+    destination's runs from the dst_ptr/dst_runs CSR, skipping runs of
+    unselected tiles.
     """
     prog, packed = d["tprog"], d["tpacked"]
     ix = ps.run_index(packed)
+    perm = ix.get("perm")
     T = packed.tile_edges
     src, dst = packed.src.reshape(-1), packed.dst.reshape(-1)
     w = packed.weights.reshape(-1) if d["weighted"] else None
@@ -221,7 +228,8 @@ def _emulate_kernel(d):
         partial = np.empty(R, dtype)
         for r in range(R):
             p = dtype.type(fill)
-            for e in range(ix["run_start"][r], ix["run_end"][r]):
+            for i in range(ix["run_start"][r], ix["run_end"][r]):
+                e = int(perm[i]) if perm is not None else i
                 s = int(src[e])
                 if not d["row"][s // isz]:
                     x = dtype.type(ident)
@@ -252,6 +260,12 @@ def _emulate_kernel(d):
         ("sssp", "zipf-k3-shared-select"),
         ("reach", "rmat-k3-stacked-select"),
         ("maxlabel", "rmat-k1-full"),
+        ("pagerank", "rmat-k1-src-sorted"),
+        ("pagerank", "zipf-k3-src-sorted-select"),
+        ("sssp", "rmat-k1-src-sorted"),
+        ("sssp", "zipf-k3-src-sorted-select"),
+        ("bfs", "rmat-k1-src-sorted"),
+        ("bfs", "zipf-k3-src-sorted-select"),
     ],
 )
 def test_run_index_emulation_matches_plain(name, case):
@@ -287,14 +301,42 @@ def test_run_index_invariants(kind, P, packing):
     np.testing.assert_array_equal(ix["long_runs"], np.flatnonzero(lens > ps.LONG_RUN))
 
 
-def test_src_sorted_layout_has_no_run_index():
-    """src_sorted runs are not contiguous: the plain version runs, the kernel refuses."""
-    src, dst = j_rmat(8, edge_factor=8, seed=1)
-    from repro_torch.core.dsss import build_dsss
-    from repro_torch.graph.preprocess import degree_and_densify
+@pytest.mark.parametrize("kind,P,weighted", [("rmat", 4, True), ("zipf", 4, False)])
+def test_src_sorted_run_index_permutes_runs(kind, P, weighted):
+    """A src_sorted layout's run index exists and its permuted runs are edge-ordered spans.
 
-    g = build_dsss(degree_and_densify(src, dst, drop_self_loops=True), 4, src_sorted=True)
-    tiles = ps.prepare_packed_tiles(g.packed_sweep("subshard"), has_weights=False, device="cpu")
-    assert "run_start" not in tiles
-    with pytest.raises(ValueError, match="contiguous"):
-        ps.run_index(g.packed_sweep("subshard"))
+    Its runs are not contiguous in the tiles, so the index carries ``perm``:
+    each run's edges are one span of ``perm``, ascending within the run,
+    all of the run's tile and destination, and every valid edge once.
+    Destination-sorted layouts of the same graph get no permutation.
+    """
+    _, tg = _graph(kind, P, weighted, src_sorted=True)
+    packed = tg.packed_sweep("subshard")
+    ix = ps.run_index(packed)
+    perm = ix["perm"]
+    T = packed.tile_edges
+    R = int(packed.u.sum())
+    assert ix["run_start"].shape == (R,)
+    np.testing.assert_array_equal(ix["run_start"][1:], ix["run_end"][:-1])
+    assert ix["run_start"][0] == 0 and ix["run_end"][-1] == packed.m == perm.shape[0]
+    valid = np.flatnonzero(np.arange(T)[None, :] < packed.e_valid[:, None])
+    np.testing.assert_array_equal(np.sort(perm), valid)
+    dst = packed.dst.reshape(-1)
+    slot = packed.run_local.reshape(-1)
+    contiguous = 0
+    for r in range(R):
+        edges = perm[ix["run_start"][r] : ix["run_end"][r]]
+        assert np.all(np.diff(edges) > 0)
+        assert np.all(edges // T == ix["run_tile"][r])
+        assert np.all(dst[edges] == ix["run_target"][r])
+        assert np.all(slot[edges] == slot[edges[0]])
+        contiguous += int(edges[-1] - edges[0] + 1 == edges.size)
+    assert contiguous < R  # some runs really are scattered in their tile
+    np.testing.assert_array_equal(
+        ix["long_runs"], np.flatnonzero(ix["run_end"] - ix["run_start"] > ps.LONG_RUN)
+    )
+    tiles = ps.prepare_packed_tiles(packed, has_weights=weighted, device="cpu")
+    np.testing.assert_array_equal(tiles["perm"].numpy(), perm)
+    _, dst_sorted = _graph(kind, P, weighted)
+    for packing in ("adaptive", "subshard"):
+        assert "perm" not in ps.run_index(dst_sorted.packed_sweep(packing))

@@ -130,3 +130,45 @@ def test_selective_is_bitwise_full_sweep_and_skips_tiles():
     np.testing.assert_array_equal(auto.attrs, off.attrs)
     assert auto.meters.edges_processed < off.meters.edges_processed
     assert not all(row.all() for row in auto.activity_log)
+
+
+_RMAT8: dict = {}
+
+
+def _rmat8():
+    if not _RMAT8:
+        el = j_densify(*j_rmat(8, edge_factor=8, seed=7), drop_self_loops=True)
+        jg = jc.build_dsss(el, 4)
+        fields = {f.name: getattr(jg, f.name) for f in dataclasses.fields(jg)}
+        fields["edgelist"] = vars(jg.edgelist)
+        _RMAT8["g"] = (jg, dsss_from_arrays(fields))
+    return _RMAT8["g"]
+
+
+@pytest.mark.parametrize("program", ["pagerank", "bfs"])
+@pytest.mark.parametrize("strategy", ["spu", "dpu", "mpu"])
+def test_meter_aggregates_match_jax(strategy, program):
+    """bytes_read/written/total and every per_iteration() field equal the JAX package's."""
+    jg, tg = _rmat8()
+    budget = 2 * jg.n_pad * 4 + 1_000  # MPU with 0 < Q < P
+    if program == "pagerank":
+        jprog, tprog, kw, iters = jc.PageRank(), rt.PageRank(), {}, 7
+    else:
+        jprog, tprog, kw, iters = jc.BFS(), rt.BFS(), {"root": 3}, jg.n + 1
+    jm = jc.GraphSession(jg, memory_budget=budget, residency="device", execution="packed").run(
+        jc.ExecutionPlan(jprog, strategy=strategy, max_iters=iters, tol=0.0, program_kwargs=kw)
+    ).meters
+    tm = rt.GraphSession(tg, device="cpu", memory_budget=budget, residency="device").run(
+        rt.ExecutionPlan(tprog, strategy=strategy, max_iters=iters, tol=0.0, program_kwargs=kw)
+    ).meters
+    assert tm.iterations == jm.iterations > 1
+    for name in ("bytes_read", "bytes_written", "bytes_total"):
+        assert getattr(tm, name) == getattr(jm, name), name
+    assert tm.bytes_total > 0
+    jp, tp = jm.per_iteration(), tm.per_iteration()
+    assert type(tp) is type(tm)
+    for f in dataclasses.fields(tp):
+        if f.name != "wall_seconds":
+            assert getattr(tp, f.name) == getattr(jp, f.name), f.name
+    assert tp.wall_seconds == tm.wall_seconds
+    assert tp.bytes_read_edges == tm.bytes_read_edges / tm.iterations
