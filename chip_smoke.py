@@ -110,6 +110,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.launch.timing import cuda_ms, device_kernels, host_ms  # noqa: E402
+
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_PER_S = 67e12  # float32 outside the tensor cores
 H100_BF16_TC_PER_S = 989e12  # bfloat16 on the tensor cores, dense
@@ -122,21 +124,6 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: check failed: {what}")
-
-
-def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # -- kernel B2's pass entry ------------------------------------------------
@@ -210,38 +197,6 @@ def b2_pass_case(dk, vals, sp, label) -> float:
     diff = (hubs.double() - want.double()).abs()
     diff = diff[torch.isfinite(diff)]
     return float(diff.max()) if diff.numel() else 0.0
-
-
-def device_kernels(fn, reps: int = 5, width: int = 60) -> dict:
-    """Per kernel name, from torch.profiler over ``reps`` calls of ``fn`` after a
-    warm-up call: the launches the trace holds and their mean device µs.
-
-    A trace may miss some launches (a window of 5 passes once held 3), so a
-    total per call comes from CUDA events, not from here."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=reps), acc_events=True) as prof:
-        for _ in range(reps + 1):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    seen: dict[str, list] = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA") and not e.name.startswith("ProfilerStep"):
-            seen.setdefault(e.name[:width], []).append(e.time_range.elapsed_us())
-    return {name: {"launches": len(us), "us_per_launch": sum(us) / len(us)} for name, us in seen.items()}
-
-
-def host_ms(fn, reps: int) -> float:
-    """Host-clock ms per call of ``fn`` over ``reps`` calls, ending in a synchronize."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0) / reps
 
 
 # -- the LM serving path (kernel B3) ---------------------------------------
@@ -1221,9 +1176,6 @@ def main() -> None:
     b2_ops = 2 * e_pad_total
     b2_bound_ms = 1e3 * max(b2_bytes / H100_BYTES_PER_S, b2_ops / H100_FP32_PER_S)
     b2_bound_by = "bytes" if b2_bytes / H100_BYTES_PER_S >= b2_ops / H100_FP32_PER_S else "operations"
-    # The per-call form's bound: each call reads its own source interval
-    # (4·isz per call).
-    b2_calls_bytes = 12 * e_pad_total + 4 * nb_total + 4 * isz * len(keys) + 4 * S
     slots = torch.from_numpy(g.global_hub_slots()).to(dev)
     hcrow = torch.zeros(S + 1, dtype=torch.int64, device=dev)
     hcrow[1:] = torch.cumsum(torch.bincount(slots, minlength=S), 0)
@@ -1237,7 +1189,7 @@ def main() -> None:
         "dsss_spmv_timing", kernel_ms=b2_ms, kernel_wall_ms=b2_wall_ms,
         calls_ms=b2_calls_ms, calls_wall_ms=b2_calls_wall_ms, plain_ms=b2_plain_ms,
         library_ms=b2_library_ms, bound_ms=b2_bound_ms, bound_by=b2_bound_by, min_bytes=b2_bytes,
-        calls_bound_ms=1e3 * b2_calls_bytes / H100_BYTES_PER_S, ops=b2_ops, calls=len(keys),
+        ops=b2_ops, calls=len(keys),
         blocks=nb_total, device_kernels=b2_device, calls_device_kernels=b2_calls_device,
         share_of_bound=b2_bound_ms / b2_ms, vs_library=b2_ms / b2_library_ms,
         hub_slots=S, nvidia_smi=smi,

@@ -27,8 +27,8 @@
 // concatenated, and per sub-shard a table holds its first block, the offset
 // and size of its source interval in src_vals, its num_slots, the offset of
 // its hub vector in out, and two flags: its slots decrease somewhere in its
-// stream, and its block_base decreases somewhere. A single sub-shard passes
-// no table (its values ride in Args) and gets its flags from `classify`.
+// stream, and its block_base decreases somewhere. A single sub-shard is a
+// pass of one: `stage_one` writes its table and `classify` its flags.
 //
 // Why not the TPU design: the TPU sums a block's window as a one-hot
 // (1, 512) x (512, 512) matmul on the MXU and min/max as a masked compare,
@@ -127,12 +127,11 @@ __device__ __forceinline__ bool in_window(int hub, int base) {
 
 struct Args {
   int num_ss, num_blocks;
-  int isize, num_slots;    // the single sub-shard, when first_block is null
   int partials_only;       // phase 1 writes every block's window of partials
-  const int* first_block;  // (num_ss + 1,) or nullptr
+  const int* first_block;  // (num_ss + 1,)
   const int* meta;         // (num_ss, 4): src_off, isize, num_slots, out_off
   const int* flags;        // (2, num_ss): slots decrease; block_base decreases
-  const int* gen_ss;       // (num_gen,) the flagged sub-shards, or nullptr
+  const int* gen_ss;       // (num_gen,) the sub-shards that may take the general path
   const int* gen_start;    // (num_gen + 1,) their slot offsets among phase 2's items
   int num_gen, gen_slots;
   const void* src_vals;
@@ -152,21 +151,12 @@ struct SubShard {
 
 __device__ __forceinline__ SubShard sub_shard(const Args& a, int k) {
   SubShard s;
-  if (a.first_block == nullptr) {
-    s.first = 0;
-    s.end = a.num_blocks;
-    s.src_off = 0;
-    s.isize = a.isize;
-    s.num_slots = a.num_slots;
-    s.out_off = 0;
-  } else {
-    s.first = a.first_block[k];
-    s.end = a.first_block[k + 1];
-    s.src_off = a.meta[4 * k];
-    s.isize = a.meta[4 * k + 1];
-    s.num_slots = a.meta[4 * k + 2];
-    s.out_off = a.meta[4 * k + 3];
-  }
+  s.first = a.first_block[k];
+  s.end = a.first_block[k + 1];
+  s.src_off = a.meta[4 * k];
+  s.isize = a.meta[4 * k + 1];
+  s.num_slots = a.meta[4 * k + 2];
+  s.out_off = a.meta[4 * k + 3];
   return s;
 }
 
@@ -181,7 +171,7 @@ __device__ __forceinline__ int last_at_most(const int* v, int n, int x) {
 }
 
 __device__ __forceinline__ int sub_shard_of_block(const Args& a, int b) {
-  return a.first_block == nullptr ? 0 : last_at_most(a.first_block, a.num_ss, b);
+  return last_at_most(a.first_block, a.num_ss, b);
 }
 
 template <typename T>
@@ -385,14 +375,10 @@ __global__ void __launch_bounds__(kThreads) slot_fold(Args a) {
   }
   const long long g = item - a.num_blocks;
   if (g >= a.gen_slots) return;
-  int k = 0;
-  int s = static_cast<int>(g);
-  if (a.gen_ss != nullptr) {
-    const int q = last_at_most(a.gen_start, a.num_gen, s);
-    k = a.gen_ss[q];
-    s -= a.gen_start[q];
-  }
-  if (a.flags[k] == 0) return;  // a single sub-shard found sorted
+  const int q = last_at_most(a.gen_start, a.num_gen, static_cast<int>(g));
+  const int k = a.gen_ss[q];
+  const int s = static_cast<int>(g) - a.gen_start[q];
+  if (a.flags[k] == 0) return;  // a single sub-shard, staged before its flags were known
   const SubShard ss = sub_shard(a, k);
   const int nb = ss.end - ss.first;
   const int* base = a.block_base + ss.first;
@@ -409,6 +395,18 @@ __global__ void __launch_bounds__(kThreads) slot_fold(Args a) {
     v = fold_step<T, R>(v, partials[static_cast<size_t>(c) * kEBlk + off]);
   }
   static_cast<T*>(a.out)[ss.out_off + s] = from_f<T>(v);
+}
+
+// A single sub-shard's table: first_block {0, num_blocks}, meta {0, isize,
+// num_slots, 0}, flags {0, 0}, gen_ss {0}, gen_start {0, num_slots}. Its
+// flags are not known yet, so phase 2 is given every slot as a general item
+// and skips them if `classify` finds the sub-shard sorted.
+constexpr int kOneTable = 11;
+
+__global__ void stage_one(int num_blocks, int isize, int num_slots, int* t) {
+  const int v[kOneTable] = {0, num_blocks, 0, isize, num_slots, 0, 0, 0, 0, 0, num_slots};
+#pragma unroll
+  for (int i = 0; i < kOneTable; ++i) t[i] = v[i];
 }
 
 // A single sub-shard's flags: its slots decrease somewhere; its block_base
@@ -449,24 +447,22 @@ int dispatch(int gather_op, int reduce, const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// C entry point, bound with ctypes (repro_torch/kernels/dsss_spmv.py).
+// C entry points, bound with ctypes (repro_torch/kernels/dsss_spmv.py).
 // dtype 0 = float32, 1 = bfloat16; gather_op 0 = mul, 1 = add; reduce
 // 0 = sum, 1 = min, 2 = max.
 //
-// A pass: first_block (num_ss + 1), meta (num_ss, 4) and flags (2, num_ss)
-// describe the sub-shards; gen_ss/gen_start list the flagged ones, whose
-// gen_slots hub slots phase 2 folds one a thread. A single sub-shard:
-// first_block, meta, gen_ss and gen_start are null, isize and num_slots are
-// its own, flags points at 2 ints of scratch that `classify` fills, and
-// gen_slots is num_slots. partials_only runs phase 1 alone and writes every
+// dsss_spmv_launch runs a pass: first_block (num_ss + 1), meta (num_ss, 4)
+// and flags (2, num_ss) describe the sub-shards; gen_ss/gen_start list the
+// ones that may take the general path, whose gen_slots hub slots phase 2
+// folds one a thread. partials_only runs phase 1 alone and writes every
 // block's window to partials (out, head and tail unused).
 //
 // Every pointer to edge data (src_idx, hub_inv, w) is 16-byte aligned.
 // Returns cudaGetLastError() of the launches: 0 on success.
 extern "C" int dsss_spmv_launch(
     int dtype, int gather_op, int reduce, int num_ss, int num_blocks,
-    int isize, int num_slots, int partials_only, int num_gen, int gen_slots,
-    const int* first_block, const int* meta, int* flags, const int* gen_ss,
+    int partials_only, int num_gen, int gen_slots,
+    const int* first_block, const int* meta, const int* flags, const int* gen_ss,
     const int* gen_start, const void* src_vals, const int* src_idx,
     const int* hub_inv, const void* w, const int* block_base,
     void* partials, void* head, void* tail, void* out, void* stream) {
@@ -474,8 +470,6 @@ extern "C" int dsss_spmv_launch(
   Args a;
   a.num_ss = num_ss;
   a.num_blocks = num_blocks;
-  a.isize = isize;
-  a.num_slots = num_slots;
   a.partials_only = partials_only;
   a.first_block = first_block;
   a.meta = meta;
@@ -494,18 +488,28 @@ extern "C" int dsss_spmv_launch(
   a.tail = tail;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (first_block == nullptr && !partials_only) {
-    cudaError_t err = cudaMemsetAsync(flags, 0, 2 * sizeof(int), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long e_pad = static_cast<long long>(num_blocks) * kEBlk;
-    classify<<<static_cast<unsigned>((e_pad + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-        hub_inv, block_base, e_pad, num_blocks, flags);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   switch (dtype) {
     case 0: return dispatch<float>(gather_op, reduce, a, s);
     case 1: return dispatch<__nv_bfloat16>(gather_op, reduce, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// dsss_spmv_stage_one stages one sub-shard of num_blocks blocks as a pass of
+// one, on the stream, into table (kOneTable ints, laid out as stage_one
+// says): dsss_spmv_launch then takes first_block = table, meta = table + 2,
+// flags = table + 6, gen_ss = table + 8, gen_start = table + 9, num_ss = 1,
+// num_gen = 1 and gen_slots = num_slots.
+extern "C" int dsss_spmv_stage_one(int num_blocks, int isize, int num_slots,
+                                   const int* hub_inv, const int* block_base,
+                                   int* table, void* stream) {
+  if (num_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  stage_one<<<1, 1, 0, s>>>(num_blocks, isize, num_slots, table);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long e_pad = static_cast<long long>(num_blocks) * kEBlk;
+  classify<<<static_cast<unsigned>((e_pad + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      hub_inv, block_base, e_pad, num_blocks, table + 6);
+  return static_cast<int>(cudaGetLastError());
 }

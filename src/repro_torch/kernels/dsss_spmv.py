@@ -330,21 +330,28 @@ def subshard_update_pass_ref(
 # ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
-_ARGTYPES = (
-    [ctypes.c_int] * 10  # dtype, gather_op, reduce, num_ss, num_blocks, isize,
-    # num_slots, partials_only, num_gen, gen_slots
-    + [ctypes.c_void_p] * 14  # first_block, meta, flags, gen_ss, gen_start,
-    # src_vals, src_idx, hub_inv, w, block_base, partials, head, tail, out
-    + [ctypes.c_void_p]  # stream
-)
+_ARGTYPES = {
+    "dsss_spmv_launch": (
+        [ctypes.c_int] * 8  # dtype, gather_op, reduce, num_ss, num_blocks,
+        # partials_only, num_gen, gen_slots
+        + [ctypes.c_void_p] * 14  # first_block, meta, flags, gen_ss, gen_start,
+        # src_vals, src_idx, hub_inv, w, block_base, partials, head, tail, out
+        + [ctypes.c_void_p]  # stream
+    ),
+    "dsss_spmv_stage_one": (
+        [ctypes.c_int] * 3  # num_blocks, isize, num_slots
+        + [ctypes.c_void_p] * 4  # hub_inv, block_base, table, stream
+    ),
+}
+_TABLE_BYTES = 64  # a single sub-shard's table: 11 ints (kOneTable), 16-byte padded
 
 
-def _library():
+def _library(name: str = "dsss_spmv_launch"):
     from repro_torch.kernels import _build
 
-    fn = _build.load("dsss_spmv").dsss_spmv_launch
+    fn = getattr(_build.load("dsss_spmv"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -374,7 +381,7 @@ def _call(src_vals, gather_op, reduce, *ints_and_ptrs) -> None:
 
 
 def _launch(src_vals, src_idx, hub_inv, weights, block_base, num_slots, gather_op, reduce):
-    """One sub-shard on the card: phase 1 alone when ``num_slots`` is None."""
+    """One sub-shard on the card, as a pass of one: phase 1 alone when ``num_slots`` is None."""
     dev, dtype = src_vals.device, src_vals.dtype
     nb = block_base.shape[0]
     _check_edges(src_idx=src_idx, hub_inv=hub_inv, weights=weights)
@@ -383,26 +390,30 @@ def _launch(src_vals, src_idx, hub_inv, weights, block_base, num_slots, gather_o
             raise ValueError(f"{name} must be contiguous")
     if src_vals.shape[0] >= 2**31 or src_idx.shape[0] >= 2**31 or (num_slots or 0) >= 2**31:
         raise ValueError("dsss_spmv indexes with int32: isize, edges and num_slots must be < 2**31")
-    # The window partials: the output of phase 1 alone, and the general
-    # path's scratch when the slots turn out to decrease (known on the card).
-    if num_slots is None:
-        partials = torch.empty((nb, E_BLK), dtype=dtype, device=dev)
-        _call(src_vals, gather_op, reduce, 1, nb, src_vals.shape[0], 0, 1, 0, 0,
-              None, None, None, None, None, src_vals.data_ptr(), src_idx.data_ptr(),
-              hub_inv.data_ptr(), weights.data_ptr(), block_base.data_ptr(),
-              partials.data_ptr(), None, None, None)
-        return partials
-    out = torch.empty((num_slots,), dtype=dtype, device=dev)
-    # One scratch allocation: 2 ints of flags (classify fills them), then
-    # the head and tail partials, then the window partials.
+    partials_only = num_slots is None
+    num_slots = 0 if partials_only else num_slots
+    # One scratch allocation: the sub-shard's table (stage_one writes it and
+    # classify its flags, on the card), then the head and tail partials,
+    # then the window partials: the output of phase 1 alone, and the general
+    # path's scratch when the slots turn out to decrease.
     size = src_vals.element_size()
     ends_bytes = -(-2 * nb * size // 16) * 16
-    scratch = torch.empty((16 + ends_bytes + nb * E_BLK * size,), dtype=torch.uint8, device=dev)
-    base = scratch.data_ptr()
-    _call(src_vals, gather_op, reduce, 1, nb, src_vals.shape[0], num_slots, 0, 0, num_slots,
-          None, None, base, None, None, src_vals.data_ptr(), src_idx.data_ptr(),
-          hub_inv.data_ptr(), weights.data_ptr(), block_base.data_ptr(), base + 16 + ends_bytes,
-          base + 16, base + 16 + nb * size, _ptr(out))
+    parts = _TABLE_BYTES + ends_bytes
+    scratch = torch.empty((parts + nb * E_BLK * size,), dtype=torch.uint8, device=dev)
+    table = scratch.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _library("dsss_spmv_stage_one")(
+        nb, src_vals.shape[0], num_slots, hub_inv.data_ptr(), block_base.data_ptr(), table, stream
+    )
+    if err != 0:
+        raise RuntimeError(f"dsss_spmv staging failed: CUDA error {err}")
+    out = None if partials_only else torch.empty((num_slots,), dtype=dtype, device=dev)
+    _call(src_vals, gather_op, reduce, 1, nb, int(partials_only), 1, num_slots,
+          table, table + 8, table + 24, table + 32, table + 36, src_vals.data_ptr(),
+          src_idx.data_ptr(), hub_inv.data_ptr(), weights.data_ptr(), block_base.data_ptr(),
+          table + parts, table + _TABLE_BYTES, table + _TABLE_BYTES + nb * size, _ptr(out))
+    if partials_only:
+        return scratch[parts:].view(dtype).view(nb, E_BLK)
     return out
 
 
@@ -416,7 +427,7 @@ def _launch_pass(src_vals, sp: SubshardPass) -> torch.Tensor:
     ends = torch.empty((2, nb), dtype=dtype, device=dev)  # head and tail partials
     partials = torch.empty((nb, E_BLK), dtype=dtype, device=dev) if sp.num_gen else None
     t = sp.tables
-    _call(src_vals, sp.gather_op, sp.reduce, t["meta"].shape[0], nb, 0, 0, 0, sp.num_gen, sp.gen_slots,
+    _call(src_vals, sp.gather_op, sp.reduce, t["meta"].shape[0], nb, 0, sp.num_gen, sp.gen_slots,
           t["first_block"].data_ptr(), t["meta"].data_ptr(), t["flags"].data_ptr(), _ptr(t["gen_ss"]),
           t["gen_start"].data_ptr(), src_vals.data_ptr(), sp.src_idx.data_ptr(),
           sp.hub_inv.data_ptr(), sp.weights.data_ptr(), sp.block_base.data_ptr(),

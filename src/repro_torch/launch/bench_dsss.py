@@ -1,24 +1,22 @@
-"""Time kernel B2 over a full pass of a graph's sub-shards on the card.
+"""Time kernel B2 over a full pass of the scale-22 graph's sub-shards on the card.
 
-    python -m repro_torch.launch.bench_dsss [--scale 22] [--P 16] [--reps 20]
-                                            [--edges PATH]
+    python -m repro_torch.launch.bench_dsss [--edges PATH]
 
-Builds R-MAT (edge factor 16, seed 0, self loops dropped) with ``P``
-intervals, stages every non-empty sub-shard's float32 mul/sum operands
-through ``GraphSession.kernel_operands``, and times the ToHub update of all
-of them on PageRank's contribs: one ``subshard_update`` call per sub-shard,
-and, where the package has it, one ``subshard_update_pass`` call. Each form
-gets CUDA-event ms and host-clock ms per pass over ``--reps`` passes after a
-warm-up, and per kernel the launches and mean device µs that a
-``torch.profiler`` trace of 5 passes (after a warm-up step) holds. Beside them: one ``torch.sparse.mm`` of the hub-slot ×
-source-vertex CSR matrix (a yardstick, used nowhere in the port) and the
-pass's least time at 3.35 TB/s. Prints one JSON line with the card's name
-and power limit.
+Builds R-MAT scale 22 (edge factor 16, seed 0, self loops dropped) with
+P = 16 intervals, the graph of ``chip_smoke.py`` phases 7-8, stages every
+non-empty sub-shard's float32 mul/sum operands through
+``GraphSession.kernel_operands``, and times the ToHub update of all of
+them on PageRank's contribs: one ``subshard_update`` call per sub-shard,
+and, where the package has it, one ``subshard_update_pass`` call, checked
+bitwise against the calls. Each form gets CUDA-event and host-clock ms per
+pass and, per kernel, the launches and mean device µs per launch that a
+``torch.profiler`` trace holds (``repro_torch.launch.timing``, as in the
+smoke). Prints one JSON line with the card's name and power limit. The
+bound and the ``torch.sparse.mm`` yardstick are the smoke's (phase 8).
 
 ``--edges`` caches the densified edge list as a ``.npz`` (made on the first
-run), so two checkouts can be timed in one session on the same graph
-(``PYTHONPATH=<checkout>/src``); the script takes whichever ``repro_torch``
-is first on the path.
+run), so two checkouts can be timed in one session on the same graph: the
+script takes whichever ``repro_torch`` is first on the path.
 """
 from __future__ import annotations
 
@@ -26,48 +24,14 @@ import argparse
 import json
 import os
 import subprocess
-import time
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
-
-
-def _timed(fn, reps: int) -> dict:
-    """CUDA-event and host-clock ms per call; per kernel, the launches a trace of
-    5 calls holds and their mean device µs (a trace may miss launches, so
-    totals come from the events)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    wall = 1e3 * (time.perf_counter() - t0) / reps
-    traced = 5  # after one warm-up step, which the trace leaves out
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=traced), acc_events=True) as prof:
-        for _ in range(traced + 1):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    seen: dict[str, list] = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA") and not e.name.startswith("ProfilerStep"):
-            seen.setdefault(e.name[:60], []).append(e.time_range.elapsed_us())
-    return {
-        "ms": start.elapsed_time(end) / reps, "wall_ms": wall, "traced_calls": traced,
-        "kernels": {name: {"launches": len(us), "us_per_launch": sum(us) / len(us)}
-                    for name, us in seen.items()},
-    }
+SCALE = 22
+P = 16
+PASS_REPS = 20
+CALL_REPS = 10
 
 
-def _edges(scale: int, path: str | None):
+def _edges(path: str | None):
     import numpy as np
 
     from repro_torch.graph.generators import rmat
@@ -77,7 +41,7 @@ def _edges(scale: int, path: str | None):
     if path and os.path.exists(path):
         z = np.load(path)
         return EdgeList(**{f: int(z[f]) if f == "n" else z[f] for f in fields})
-    el = degree_and_densify(*rmat(scale, edge_factor=16, seed=0), drop_self_loops=True)
+    el = degree_and_densify(*rmat(SCALE, edge_factor=16, seed=0), drop_self_loops=True)
     if path:
         np.savez(path, **{f: getattr(el, f) for f in fields})
     return el
@@ -85,27 +49,25 @@ def _edges(scale: int, path: str | None):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scale", type=int, default=22)
-    ap.add_argument("--P", type=int, default=16)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--edges", default=None)
+    ap.add_argument("--edges", default=None, help="cache of the edge list (.npz)")
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_dsss: no CUDA device is available")
 
     from repro_torch import core
     from repro_torch.kernels import dsss_spmv as dk
     from repro_torch.kernels import ops as kops
+    from repro_torch.launch.timing import cuda_ms, device_kernels, host_ms
 
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_dsss: no CUDA device is available")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    g = core.build_dsss(_edges(args.scale, args.edges), args.P)
+    g = core.build_dsss(_edges(args.edges), P)
     sess = core.GraphSession(g, device=dev)
     keys = sorted(sess.block_keys)
     isz = g.interval_size
@@ -121,30 +83,20 @@ def main(argv=None) -> dict:
             for k, (i, _) in enumerate(keys)
         ]
 
-    out = {"source": dk.__file__, "nvidia_smi": smi, "scale": args.scale, "P": args.P,
-           "subshards": len(keys), "calls": _timed(calls, max(1, args.reps // 2))}
-    e_pad = sum(int(o[0].shape[0]) for o in ops)
-    S = int(sum(slots))
-    min_bytes = 12 * e_pad + 4 * e_pad // dk.E_BLK + 4 * g.n_pad + 4 * S
-    out.update(padded_edges=e_pad, hub_slots=S, min_bytes=min_bytes,
-               bound_ms=1e3 * min_bytes / H100_BYTES_PER_S)
+    def timed(fn, reps):
+        return {"ms": cuda_ms(fn, reps), "wall_ms": host_ms(fn, reps), "kernels": device_kernels(fn)}
+
+    out = {"source": dk.__file__, "nvidia_smi": smi, "scale": SCALE, "P": P,
+           "subshards": len(keys), "calls": timed(calls, CALL_REPS)}
     if hasattr(dk, "subshard_update_pass"):
         sp = kops.prepare_subshard_pass(
             ops, [i * isz for i, _ in keys], [isz] * len(keys), slots, gather_op="mul", reduce="sum"
         )
-        out["pass"] = _timed(lambda: dk.subshard_update_pass(contrib, sp), args.reps)
+        out["pass"] = timed(lambda: dk.subshard_update_pass(contrib, sp), PASS_REPS)
         hubs, offsets = dk.subshard_update_pass(contrib, sp)
         for k, hub in enumerate(calls()):
             if not torch.equal(hubs[offsets[k]:offsets[k + 1]].view(torch.int32), hub.view(torch.int32)):
                 raise SystemExit(f"bench_dsss: pass != subshard_update on sub-shard {keys[k]}")
-    slot_ids = torch.from_numpy(g.global_hub_slots()).to(dev)
-    crow = torch.zeros(S + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(torch.bincount(slot_ids, minlength=S), 0)
-    mat = torch.sparse_csr_tensor(
-        crow, torch.from_numpy(g.src.astype(np.int64)).to(dev),
-        torch.ones(g.m, dtype=torch.float32, device=dev), (S, g.n_pad),
-    )
-    out["sparse_mm"] = _timed(lambda: torch.sparse.mm(mat, contrib[:, None]), args.reps)
     print(json.dumps(out), flush=True)
     return out
 

@@ -630,3 +630,20 @@ def test_wrapper_refuses_malformed_operands(bad):
         base = torch.cat([base, base])
     with pytest.raises((ValueError, TypeError)):
         tk.subshard_update(tvals, src_idx, hub_inv, w, base, 32)
+
+
+@pytest.mark.parametrize("entry", ["dsss_spmv_launch", "dsss_spmv_stage_one"])
+def test_argtypes_match_the_c_signature(entry):
+    """The ctypes binding of each C entry point matches its parameters in dsss_spmv.cu."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    text = (Path(tk.__file__).parent / "csrc" / "dsss_spmv.cu").read_text()
+    match = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
+    assert match, entry
+    params = [" ".join(p.split()) for p in match.group(1).split(",")]
+    assert len(params) == len(tk._ARGTYPES[entry])
+    for param, argtype in zip(params, tk._ARGTYPES[entry]):
+        want = ctypes.c_void_p if "*" in param else {"int": ctypes.c_int}[param.rsplit(" ", 1)[0]]
+        assert argtype is want, param
