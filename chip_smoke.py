@@ -17,9 +17,13 @@ Phases, each printing one JSON line:
    subshard packing, and a src_sorted build of the R-MAT graph (subshard
    packing, runs reached through the edge permutation), all six programs,
    weighted and unweighted, K=1 full sweeps and K=8 with stacked aux, a
-   partial row_active and a selective tile list. Tolerance: none, the
-   results must be bitwise equal, and a second launch must give the same
-   bits.
+   partial row_active and a selective tile list; then the hand-made layouts
+   of ``repro_torch.launch.b1_cases`` (a run of 20,000 edges, run ends at
+   window and chunk edges, -0.0 and NaN contribs, inactive intervals with
+   negative and infinite weights, a selection without the longest run's
+   tile, K=8 stacked, a src_sorted build) for all six programs. Tolerance:
+   none, the results must be bitwise equal, and a second launch must give
+   the same bits.
 3. main_path: R-MAT scale 22, edge factor 16, seed 0, P=16 (the paper's
    live-journal at its own size) through ``GraphSession.run`` for PageRank
    under SPU/DPU/MPU and ``run_batch`` of 8 BFS roots. Checks: the kernel
@@ -29,7 +33,11 @@ Phases, each printing one JSON line:
    run bitwise.
 4. timing: the kernel, its plain version and one ``torch.sparse.mm`` of the
    same PageRank gather-reduce (the yardstick, used nowhere in the port),
-   at the main path's shapes. Before it, src_sorted_path: R-MAT scale 18,
+   at the main path's shapes, with each of the kernel's launches and its
+   mean device µs (torch.profiler). b1_k8: the kernel alone for a batch of
+   8 BFS queries (K=8, the fused batch's shape) beside its plain version
+   and its byte bound; no single PyTorch call computes a min-plus fold, so
+   it has no library time. Before it, src_sorted_path: R-MAT scale 18,
    P=8, built src_sorted, through ``GraphSession(g)`` (execution "auto")
    for 10 PageRank sweeps: one B1 launch per sweep, bitwise equal to the
    same run with the plain version; beside it, the destination-sorted
@@ -533,6 +541,7 @@ def main() -> None:
 
     from repro_torch import core
     from repro_torch.configs import get_config
+    from repro_torch.convert import aux_from_numpy
     from repro_torch.core import session as session_mod
     from repro_torch.core import vertex_programs as vp
     from repro_torch.core.identities import reduce_identity
@@ -543,6 +552,7 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import packed_sweep as ps
+    from repro_torch.launch import b1_cases
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -648,10 +658,33 @@ def main() -> None:
                                 max_abs_err = max(max_abs_err, float(diff.max()))
                             cases += 1
                             src_sorted_cases += src_sorted
+    # Hand-made layouts that reach every branch of the kernel (b1_cases).
+    hand_cases = 0
+    by_name = dict(zip(b1_cases.PROGRAMS, programs))
+    for cname in b1_cases.CASES:
+        for pname in b1_cases.PROGRAMS:
+            c = b1_cases.case(cname, pname)
+            tiles = ps.prepare_packed_tiles(c["packed"], has_weights=c["weighted"], device=dev)
+            idx = None if c["idx"] is None else torch.from_numpy(c["idx"]).to(dev)
+            args = (by_name[pname], torch.from_numpy(c["attrs"]).to(dev), torch.from_numpy(c["acc"]).to(dev),
+                    aux_from_numpy(c["aux"], dev), tiles, torch.from_numpy(c["row"]).to(dev),
+                    c["weighted"], c["stacked"], idx)
+            got = ps.packed_sweep_update(*args)
+            again = ps.packed_sweep_update(*args)
+            want = ps.packed_sweep_update_ref(*args)
+            torch.cuda.synchronize()
+            label = f"hand-made {cname} {pname}"
+            check(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"kernel not deterministic: {label}")
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)), f"kernel != plain: {label}")
+            diff = (got.double() - want.double()).abs()
+            diff = diff[torch.isfinite(diff)]
+            if diff.numel():
+                max_abs_err = max(max_abs_err, float(diff.max()))
+            hand_cases += 1
     emit(
-        "kernel_vs_plain", cases=cases, src_sorted_cases=src_sorted_cases,
-        launches=ps.launches - before, bitwise=True, max_abs_err=max_abs_err,
-        seconds=time.perf_counter() - t0,
+        "kernel_vs_plain", cases=cases + hand_cases, src_sorted_cases=src_sorted_cases,
+        hand_made_cases=hand_cases, launches=ps.launches - before, bitwise=True,
+        max_abs_err=max_abs_err, seconds=time.perf_counter() - t0,
     )
 
     # -- phase 5: the sub-shard ToHub kernel against its plain version -------
@@ -758,7 +791,8 @@ def main() -> None:
     emit(
         "main_path_graph", n=g.n, m=g.m, P=g.P, T=packed.tile_edges,
         NT=packed.num_tiles, runs=int(tiles["run_start"].shape[0]),
-        long_runs=int(tiles["long_runs"].shape[0]),
+        long_runs=int(((tiles["run_end"] - tiles["run_start"]) > ps.LONG_RUN).sum()),
+        chunks=int(tiles["chunks"].shape[0]),
         max_run=int((tiles["run_end"] - tiles["run_start"]).max()),
         padding_ratio=packed.padding_ratio, host_rmat_s=t_rmat,
         host_densify_s=t_densify, host_build_dsss_and_pack_s=t_build,
@@ -955,7 +989,7 @@ def main() -> None:
     # Least bytes: attrs, inv_out_degree, acc in and out (4·n_pad each), the
     # sources of the m edges, each run's span, the destination CSR, P flags.
     R = int(tiles["run_start"].shape[0])
-    L = int(tiles["long_runs"].shape[0])
+    L = int(((tiles["run_end"] - tiles["run_start"]) > ps.LONG_RUN).sum())
     min_bytes = 16 * g.n_pad + 4 * g.m + 12 * R + 4 * L + 4 * (g.n_pad + 1) + g.P
     ops = 2 * g.m  # one multiply per edge, one add per edge
     bound_ms = 1e3 * max(min_bytes / H100_BYTES_PER_S, ops / H100_FP32_PER_S)
@@ -963,9 +997,39 @@ def main() -> None:
         "timing", kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bound_ms, min_bytes=min_bytes, ops=ops,
         apply_ms=apply_ms, sweep_ms=mean_ms,
-        kernel_share_of_sweep=kernel_ms / mean_ms, nvidia_smi=smi,
+        kernel_share_of_sweep=kernel_ms / mean_ms, share_of_bound=bound_ms / kernel_ms,
+        vs_library=kernel_ms / library_ms,
+        device_kernels=device_kernels(lambda: ps.packed_sweep_update(*args)), nvidia_smi=smi,
     )
     b1_bound_by = "bytes" if min_bytes / H100_BYTES_PER_S >= ops / H100_FP32_PER_S else "operations"
+
+    # -- phase 4b: B1 alone for the fused BFS batch (K = 8) ------------------
+    # The BFS state of the main path's batch after its first sweeps is not
+    # kept, so the depths are drawn (numpy seed 0) with half the vertices
+    # unreached. Least bytes: attrs, acc in and out (4·K·n_pad each), the
+    # sources of the m edges, each run's span and CSR entry, the long-run
+    # list, CSR offsets and P flags; one min per edge and query.
+    K8 = len(bfs_plans)
+    r8 = np.random.default_rng(0)
+    depth = r8.integers(0, 12, (K8, g.n_pad)).astype(np.int32)
+    depth[r8.random((K8, g.n_pad)) < 0.5] = core.INF_DEPTH
+    bfs_attrs = torch.from_numpy(depth).to(dev)
+    args8 = (vp.BFS(), bfs_attrs, bfs_attrs.clone(), {}, tiles, row, False, True)
+    check(torch.equal(ps.packed_sweep_update(*args8), ps.packed_sweep_update_ref(*args8)),
+          "kernel != plain for the K = 8 BFS batch at the main path's shapes")
+    k8_ms = cuda_ms(lambda: ps.packed_sweep_update(*args8), reps=20)
+    k8_plain_ms = cuda_ms(lambda: ps.packed_sweep_update_ref(*args8), reps=2)
+    k8_bytes = 12 * K8 * g.n_pad + 4 * g.m + 12 * R + 4 * L + 4 * (g.n_pad + 1) + g.P
+    k8_ops = K8 * g.m
+    k8_bound_ms = 1e3 * max(k8_bytes / H100_BYTES_PER_S, k8_ops / H100_FP32_PER_S)
+    emit(
+        "b1_k8", K=K8, kernel_ms=k8_ms, plain_ms=k8_plain_ms, library_ms=None,
+        bound_ms=k8_bound_ms, min_bytes=k8_bytes, ops=k8_ops,
+        bound_by="bytes" if k8_bytes / H100_BYTES_PER_S >= k8_ops / H100_FP32_PER_S else "operations",
+        share_of_bound=k8_bound_ms / k8_ms,
+        device_kernels=device_kernels(lambda: ps.packed_sweep_update(*args8)), nvidia_smi=smi,
+    )
+    del bfs_attrs, args8
 
     # -- phase 6: the per-block path at full width -----------------------------
     # Its float sums rest on torch.segment_reduce folding each segment in

@@ -135,7 +135,8 @@ class PackedSweep:
     Tile order folds each destination's runs in ascending source-interval
     order, the fold order of every SPU/DPU/MPU schedule.
     ``src_interval``/``dst_interval``/``base_slot``/``u``/``row_offset``
-    are host-side metadata.
+    are host-side metadata; ``interval_size`` is the graph's, with which
+    the kernel's run index checks that each run reads one source interval.
     """
 
     mode: str  # "adaptive" | "subshard"
@@ -153,6 +154,7 @@ class PackedSweep:
     base_slot: np.ndarray  # int64 (NT,)
     u: np.ndarray  # int32 (NT,)
     row_offset: np.ndarray  # int64 (NT,)
+    interval_size: int  # vertices per interval: source interval = src // interval_size
 
     @property
     def num_tiles(self) -> int:
@@ -379,6 +381,7 @@ class DSSSGraph:
             base_slot=base_slot,
             u=u,
             row_offset=row_offset,
+            interval_size=isz,
         )
 
     def mean_hub_in_degree(self) -> float:

@@ -19,8 +19,10 @@ no atomics, so a run repeated gives the same bits too.
 
 The kernel needs a run index that :func:`prepare_packed_tiles` builds once
 per layout on the host: each run's edge span, its tile and destination,
-a destination → runs CSR in ascending run order, and, on a ``src_sorted``
-layout whose runs are not contiguous, an edge permutation that makes them so.
+a destination → runs CSR in ascending run order, the kernel's chunk table
+(run-aligned work items of one tile and one source interval, long runs
+first), and, on a ``src_sorted`` layout whose runs are not contiguous, an
+edge permutation that makes them so.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ __all__ = [
     "packed_sweep_update",
     "packed_sweep_update_ref",
     "prepare_packed_tiles",
+    "run_index",
     "launches",
     "LONG_RUN",
 ]
@@ -51,9 +54,11 @@ __all__ = [
 # reaches the card). Callers reset it to 0 and read it around a run.
 launches = 0
 
-# Runs longer than this many edges are folded by a whole warp (lanes share
-# the gathers, the fold stays in edge order); shorter ones by one thread.
-LONG_RUN = 64
+# A warp stages this many edge positions at a time (kCap in the kernel).
+# Runs longer than that are folded window by window by a warp of their own
+# (a long chunk); shorter ones are packed into run-aligned chunks of at most
+# LONG_RUN positions, one warp each.
+LONG_RUN = 512
 
 # Leaves of the tile layout itself, in PackedSweep order.
 TILE_LEAVES = ("src", "dst", "run_local", "run_dst", "e_valid")
@@ -81,14 +86,17 @@ def run_index(packed) -> dict[str, np.ndarray]:
     ascending (tile, slot) order. Returns each run's edge span
     ``[run_start, run_end)``, ``run_tile``, ``run_target`` (its
     destination), the destination → runs CSR ``dst_ptr``/``dst_runs``
-    (ascending run order within a destination), and ``long_runs`` (runs
-    longer than :data:`LONG_RUN`).
+    (ascending run order within a destination), and ``chunks``, the
+    kernel's work list (:func:`chunk_table`).
 
     Where every run's edges are contiguous (destination-sorted layouts),
     a span is of flat positions ``t·T + e``. Where they are not (subshard
     tiles of a ``src_sorted`` graph), the index also holds ``perm``: the
     valid flat positions stably sorted by run, so run ``r``'s edges are
     ``perm[run_start[r]:run_end[r]]``, still in ascending edge order.
+
+    A run is one hub slot, one (destination, sub-shard): raises if a run's
+    edges read more than one source interval.
     """
     NT, T = packed.src.shape
     if NT * T >= 2**31:
@@ -107,6 +115,12 @@ def run_index(packed) -> dict[str, np.ndarray]:
     if not np.array_equal(gid[starts], np.arange(R)):
         raise ValueError("tile layout has run slots below u with no edges")
     ends = np.concatenate([starts[1:], [gid.size]])
+    edges = flat if perm is None else perm  # the edges in run order
+    iv_edge = packed.src.reshape(-1)[edges] // packed.interval_size
+    run_iv = iv_edge[starts]
+    if np.any(iv_edge != run_iv[gid]):
+        r = int(gid[np.flatnonzero(iv_edge != run_iv[gid])[0]])
+        raise ValueError(f"run {r} reads more than one source interval")
     if perm is None:
         run_start = flat[starts]
         run_end = flat[ends - 1] + 1
@@ -119,7 +133,6 @@ def run_index(packed) -> dict[str, np.ndarray]:
     dst_ptr = np.searchsorted(
         run_target[dst_runs], np.arange(packed.n_pad + 1), side="left"
     )
-    long_runs = np.flatnonzero(run_end - run_start > LONG_RUN)
     as32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
     index = {
         "run_start": as32(run_start),
@@ -128,11 +141,63 @@ def run_index(packed) -> dict[str, np.ndarray]:
         "run_target": as32(run_target),
         "dst_ptr": as32(dst_ptr),
         "dst_runs": as32(dst_runs),
-        "long_runs": as32(long_runs),
+        "chunks": chunk_table(run_start, run_end, run_tile, run_iv),
     }
     if perm is not None:
         index["perm"] = as32(perm)
     return index
+
+
+def chunk_table(run_start, run_end, run_tile, run_iv) -> np.ndarray:
+    """The kernel's chunks, one warp each: ``(NC, 8)`` int32 rows
+    ``run0, run1, pos0, pos1, interval, tile, 0, 0``.
+
+    A chunk is the runs ``[run0, run1)`` over the positions ``[pos0,
+    pos1)`` (contiguous: each run starts where the one before it ends), all
+    of one tile and one source interval, so activity and the tile
+    selection are one check per chunk. A run longer than :data:`LONG_RUN`
+    is a chunk of its own (a long chunk). The other runs of a (tile,
+    interval) stretch between long runs are packed greedily, in run order,
+    into short chunks of at most ``LONG_RUN`` positions: a chunk takes runs
+    while they fit, so the walk is one step per chunk. Long chunks come
+    first, longest first, then the short chunks in run order.
+    """
+    R = run_start.shape[0]
+    if R == 0:
+        return np.zeros((0, 8), np.int32)
+    lens = (run_end - run_start).astype(np.int64)
+    is_long = lens > LONG_RUN
+    new_seg = np.ones(R, bool)
+    new_seg[1:] = (
+        (run_tile[1:] != run_tile[:-1]) | (run_iv[1:] != run_iv[:-1])
+        | is_long[1:] | is_long[:-1]
+    )
+    if np.any(~new_seg[1:] & (run_start[1:] != run_end[:-1])):
+        raise ValueError("runs of one tile are not contiguous")
+    seg_starts = np.flatnonzero(new_seg)
+    seg_end = np.concatenate([seg_starts[1:], [R]])[np.cumsum(new_seg) - 1]
+    cum = np.concatenate([[0], np.cumsum(lens)])  # edges before each run
+    # The first run that no longer fits in a chunk starting at run r.
+    nxt = np.searchsorted(cum, cum[:-1] + LONG_RUN, side="right") - 1
+    nxt = np.maximum(np.minimum(nxt, seg_end), np.arange(R) + 1)
+    starts = []
+    r = 0
+    while r < R:
+        starts.append(r)
+        r = int(nxt[r])
+    run0 = np.asarray(starts, np.int64)
+    run1 = np.concatenate([run0[1:], [R]])
+    longs = is_long[run0]
+    order = np.concatenate([
+        np.flatnonzero(longs)[np.argsort(-lens[run0[longs]], kind="stable")],
+        np.flatnonzero(~longs),
+    ])
+    zero = np.zeros_like(run0)
+    table = np.stack(
+        [run0, run1, run_start[run0], run_end[run1 - 1], run_iv[run0], run_tile[run0], zero, zero],
+        axis=1,
+    )[order]
+    return np.ascontiguousarray(table, dtype=np.int32)
 
 
 def prepare_packed_tiles(packed, *, has_weights: bool, device) -> dict:
@@ -140,16 +205,20 @@ def prepare_packed_tiles(packed, *, has_weights: bool, device) -> dict:
 
     The one upload of the layout: ``src``/``dst``/``run_local``/``run_dst``
     ``(NT, T)``, ``e_valid`` ``(NT,)``, ``weights`` when present, plus the
-    leaves of :func:`run_index` (with ``perm`` on a ``src_sorted`` layout).
+    leaves of :func:`run_index` (with ``perm`` on a ``src_sorted`` layout),
+    and ``interval_size``, a Python int the kernel checks ``row_active``
+    against.
     """
     leaves = {k: getattr(packed, k) for k in TILE_LEAVES}
     if has_weights:
         leaves["weights"] = packed.weights
     leaves.update(run_index(packed))
-    return {
+    tiles = {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
         for k, v in leaves.items()
     }
+    tiles["interval_size"] = packed.interval_size
+    return tiles
 
 
 # ---------------------------------------------------------------------------
@@ -264,8 +333,8 @@ def packed_sweep_update_ref(
 # The kernel
 # ---------------------------------------------------------------------------
 _ARGTYPES = (
-    [ctypes.c_int] * 6  # prog, K, n_pad, R, L, isz
-    + [ctypes.c_int, ctypes.c_longlong]  # long_min, aux_stride
+    [ctypes.c_int] * 5  # prog, K, n_pad, NC, isz
+    + [ctypes.c_longlong]  # aux_stride
     + [ctypes.c_void_p] * 18  # tensors (see the C entry point)
     + [ctypes.c_void_p]  # stream
 )
@@ -323,14 +392,21 @@ def _launch(
     if has_weights:
         _check(tiles["weights"], "weights", torch.float32, dev, (NT, T))
     R = tiles["run_start"].shape[0]
-    for name in ("run_start", "run_end", "run_tile", "dst_runs", "long_runs"):
-        _check(tiles[name], name, torch.int32, dev)
+    for name in ("run_start", "run_tile", "dst_runs"):
+        _check(tiles[name], name, torch.int32, dev, (R,))
     _check(tiles["dst_ptr"], "dst_ptr", torch.int32, dev, (n_pad + 1,))
+    chunks = tiles["chunks"]
+    _check(chunks, "chunks", torch.int32, dev)
+    if chunks.ndim != 2 or chunks.shape[1] != 8:
+        raise ValueError(f"chunks has shape {tuple(chunks.shape)}, expected (NC, 8)")
     perm = tiles.get("perm")
     if perm is not None:
         _check(perm, "perm", torch.int32, dev)
-    if n_pad % P:
-        raise ValueError(f"n_pad={n_pad} is not a multiple of P={P}")
+    if n_pad % P or n_pad // P != tiles["interval_size"]:
+        raise ValueError(
+            f"row_active has {P} intervals; the tiles were staged for intervals "
+            f"of {tiles['interval_size']} of n_pad={n_pad}"
+        )
     aux_ptrs = []
     for name in aux_names:
         v = aux[name]
@@ -346,18 +422,17 @@ def _launch(
         tile_sel = torch.zeros(NT, dtype=torch.uint8, device=dev)
         tile_sel[idx[:n_sel].to(device=dev, dtype=torch.long)] = 1
     active = row_active.to(device=dev, dtype=torch.uint8).contiguous()
-    partial = torch.empty((K, R), dtype=dtype, device=dev)
+    y = torch.empty((n_pad, K), dtype=dtype, device=dev)
+    partial = torch.empty((R, K), dtype=dtype, device=dev)
     out = torch.empty_like(acc_flat)
     fn = _library()
     err = fn(
-        prog_id, K, n_pad, R, tiles["long_runs"].shape[0], n_pad // P,
-        LONG_RUN, n_pad if aux_batched else 0,
-        attrs_flat.data_ptr(), acc_flat.data_ptr(), out.data_ptr(),
+        prog_id, K, n_pad, chunks.shape[0], n_pad // P, n_pad if aux_batched else 0,
+        attrs_flat.data_ptr(), acc_flat.data_ptr(), out.data_ptr(), y.data_ptr(),
         partial.data_ptr(), tiles["src"].data_ptr(), tiles["dst"].data_ptr(),
         _ptr(tiles["weights"]) if has_weights else None,
-        tiles["run_start"].data_ptr(), tiles["run_end"].data_ptr(),
-        tiles["run_tile"].data_ptr(), tiles["dst_ptr"].data_ptr(),
-        tiles["dst_runs"].data_ptr(), tiles["long_runs"].data_ptr(),
+        tiles["run_start"].data_ptr(), tiles["run_tile"].data_ptr(),
+        tiles["dst_ptr"].data_ptr(), tiles["dst_runs"].data_ptr(), chunks.data_ptr(),
         _ptr(perm), _ptr(tile_sel), active.data_ptr(), aux_ptrs[0], aux_ptrs[1],
         torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -29,6 +29,7 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "import repro_torch.configs, repro_torch.models, repro_torch.serving.llm_demo\n"
         "import repro_torch.kernels.flash_attention, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.launch.bench_dsss\n"
+        "import repro_torch.launch.bench_packed, repro_torch.launch.b1_cases\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.convert import aux_from_numpy
 from repro_torch.core import identities as tid
 from repro_torch.core import session as session_mod
 from repro_torch.core import vertex_programs as vp
@@ -32,6 +33,7 @@ from repro_torch.kernels import dsss_spmv as dk
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import packed_sweep as ps
+from repro_torch.launch import b1_cases as bc
 
 pytestmark = pytest.mark.cuda
 
@@ -199,6 +201,66 @@ def test_src_sorted_session_runs_the_kernel(strategy, execution, dev):
         session_mod.packed_sweep_update = ps.packed_sweep_update
     np.testing.assert_array_equal(got.attrs.view(np.int32), plain.attrs.view(np.int32))
     assert got.meters.model_dict() == cpu.run(pr).meters.model_dict()
+
+
+# ---------------------------------------------------------------------------
+# B1 on hand-made layouts that reach every branch, and the K = 8 BFS batch
+# ---------------------------------------------------------------------------
+BY_NAME = dict(zip(bc.PROGRAMS, PROGRAMS))
+
+
+@pytest.mark.parametrize("program", bc.PROGRAMS)
+@pytest.mark.parametrize("case", list(bc.CASES))
+def test_kernel_hand_made_layouts_bitwise(case, program, dev):
+    """Long runs across windows, run ends at chunk and window edges, −0.0/NaN
+    contribs, inactive intervals with wild weights, a selection without the
+    longest run's tile, K = 8 stacked, a src_sorted build: bitwise equal to
+    the plain version and to a repeat."""
+    c = bc.case(case, program)
+    tiles = ps.prepare_packed_tiles(c["packed"], has_weights=c["weighted"], device=dev)
+    idx = None if c["idx"] is None else torch.from_numpy(c["idx"]).to(dev)
+    args = (
+        BY_NAME[program], torch.from_numpy(c["attrs"]).to(dev), torch.from_numpy(c["acc"]).to(dev),
+        aux_from_numpy(c["aux"], dev), tiles, torch.from_numpy(c["row"]).to(dev), c["weighted"],
+        c["stacked"], idx,
+    )
+    before = ps.launches
+    got = ps.packed_sweep_update(*args)
+    again = ps.packed_sweep_update(*args)
+    want = ps.packed_sweep_update_ref(*args)
+    torch.cuda.synchronize()
+    assert ps.launches == before + 2
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("packing", ["adaptive", "subshard"])
+def test_kernel_bfs_k8_bitwise(packing, dev):
+    """The fused BFS batch's shape (K = 8, no aux): full sweep and a partial
+    one, bitwise equal to the plain version and to a repeat; the batch of 8
+    roots through a session gives the CPU's bits."""
+    g = _graph("rmat", 4, False)
+    packed = g.packed_sweep(packing)
+    tiles = ps.prepare_packed_tiles(packed, has_weights=False, device=dev)
+    rng = np.random.default_rng(8)
+    bfs = vp.BFS()
+    for partial in (False, True):
+        attrs, acc, _ = _inputs(bfs, g, 8, True, rng, dev)
+        row = np.ones(g.P, bool)
+        idx = None
+        if partial:
+            row[1] = False
+            idx = torch.from_numpy(np.flatnonzero(rng.random(packed.num_tiles) < 0.6).astype(np.int32)).to(dev)
+        args = (bfs, attrs, acc, {}, tiles, torch.from_numpy(row).to(dev), False, True, idx)
+        got = ps.packed_sweep_update(*args)
+        again = ps.packed_sweep_update(*args)
+        want = ps.packed_sweep_update_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, again)
+    plans = [ExecutionPlan(bfs, max_iters=g.n + 1, program_kwargs={"root": r}) for r in range(8)]
+    card = GraphSession(g, packing=packing).run_batch(plans)
+    for a, b in zip(card, GraphSession(g, device="cpu", packing=packing).run_batch(plans)):
+        np.testing.assert_array_equal(a.attrs, b.attrs)
 
 
 # ---------------------------------------------------------------------------
