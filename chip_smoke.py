@@ -98,8 +98,31 @@ Phases, each printing one JSON line:
     equal, or part only where the top-2 logit gap is below 1e-4 of the
     logit.
 
+The engine's surface above the session, on the main path's scale-22 graph
+(after phase 3, 6 and 8; each with every count set to 0 just before it):
+
+- packed_scan_path: ``execution="packed"`` (the tile sweep's plain
+  version, by name) for 3 PageRank sweeps and the 8-root BFS batch: no B1
+  launch, attrs bitwise equal to the same runs under ``packed_kernel``,
+  model meters field-identical; ms per sweep.
+- drivers: ``pagerank(g, iters=10)`` bitwise equal to the main path's
+  PageRank; ``bfs(g, r)`` equal to the batch's member and ``multi_bfs``
+  to the batch (fused); ``sssp``/``multi_sssp`` equal to the BFS depths as
+  float32 (+inf unreached); one B1 launch per sweep; a second call gets
+  the same cached session with no new staging; ms per sweep and job ms.
+- baselines: ``TurboGraphLikeEngine`` over the per-block session, 10
+  PageRank sweeps: bitwise equal to SPU per-block and packed, interval
+  bytes per sweep exactly (P + non-empty blocks)·isz·Ba read and P·isz·Ba
+  written; ms per sweep.
+- wcc_scc: ``wcc(el)`` and ``scc(el)`` on the scale-22 edge list: WCC
+  labels equal the least vertex id of each of scipy's weak components, the
+  SCC labels give scipy's strong partition; one B1 launch per sweep;
+  rounds, sweeps, and host seconds (builds, trim) apart from the seconds
+  in sessions.
+
 Before the card's line, the ``kernels`` line gives each kernel's launches
-on its path, time, plain time, bound and library time; B2's are the pass
+on its paths (B1: main path, drivers and wcc_scc, by path in
+``launches_by_path``), time, plain time, bound and library time; B2's are the pass
 entry's, with ``calls_ms``/``calls_launches`` for the per-call form.
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 and the script exits non-zero. Without a CUDA device it exits non-zero
@@ -534,6 +557,208 @@ def lm_serving_f32(dev, cfg) -> None:
     )
 
 
+def ms_of(fn):
+    """(result, ms) of one call on the card, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def packed_scan_path(core, ps, dk, fa, g, sess, budget, pr, bfs_plans, bfs, smi) -> None:
+    """execution="packed" at scale 22: no B1 launch, B1's bits and meters."""
+    scan = core.get_session(g, device=sess.device, memory_budget=budget, residency="device",
+                            execution="packed")
+    plan3 = core.ExecutionPlan(pr, strategy="spu", max_iters=3, tol=0.0)
+    check(scan.compile(plan3).execution == "packed", "execution='packed' did not resolve to itself")
+    scan.run(core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0))  # stages the tiles
+    torch.cuda.synchronize()
+    ps.launches = 0  # every count to 0 just before the plain-scan path
+    dk.launches = 0
+    fa.launches = 0
+    pr3, pr3_ms = ms_of(lambda: scan.run(plan3))
+    scan_bfs, bfs_ms = ms_of(lambda: scan.run_batch(bfs_plans))
+    counts = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    check(counts == {"packed_sweep": 0, "dsss_spmv": 0, "flash_attention": 0},
+          f"the plain-scan path launched a kernel: {counts}")
+    kern3 = sess.run(plan3)
+    check(np.array_equal(pr3.attrs.view(np.int32), kern3.attrs.view(np.int32)),
+          "packed PageRank != packed_kernel bitwise over 3 sweeps")
+    check(pr3.meters.model_dict() == kern3.meters.model_dict(), "packed PageRank meters differ")
+    check(scan_bfs.fused and scan_bfs.iterations == bfs.iterations, "packed BFS batch sweeps differ")
+    for a, b in zip(scan_bfs, bfs):
+        check(np.array_equal(a.attrs, b.attrs), "packed BFS batch != packed_kernel batch")
+    check(scan_bfs.meters.model_dict() == bfs.meters.model_dict(), "packed BFS meters differ")
+    emit(
+        "packed_scan_path", launches=counts, pr_sweeps=pr3.meters.iterations,
+        pr_ms_per_sweep=1e3 * pr3.meters.wall_seconds / pr3.meters.iterations, pr_run_ms=pr3_ms,
+        kernel_pr_ms_per_sweep=1e3 * kern3.meters.wall_seconds / kern3.meters.iterations,
+        bfs_sweeps=scan_bfs.iterations, bfs_ms_per_sweep=1e3 * scan_bfs.meters.wall_seconds / scan_bfs.iterations,
+        bfs_run_ms=bfs_ms, bitwise_vs_packed_kernel=True, nvidia_smi=smi,
+    )
+
+
+def drivers(core, ps, dk, fa, dev, g, ref, bfs, roots, smi) -> int:
+    """The §IV drivers on the scale-22 graph: B1 once per sweep, the main path's bits."""
+    from repro_torch.core import algorithms as alg
+
+    calls = {
+        "pagerank": lambda: alg.pagerank(g, iters=10),
+        "bfs": lambda: alg.bfs(g, int(roots[3])),
+        "multi_bfs": lambda: alg.multi_bfs(g, roots),
+        "sssp": lambda: alg.sssp(g, int(roots[3])),
+        "multi_sssp": lambda: alg.multi_sssp(g, roots),
+    }
+    alg.pagerank(g, iters=1)  # stages the tiles of the cached session, warms
+    sess = core.get_session(g)
+    staged = sess._staged
+    tiles_before = dict(staged._packed_tiles)
+    ps.launches = 0  # every count to 0 just before the drivers
+    dk.launches = 0
+    fa.launches = 0
+    out, job_ms, launches = {}, {}, {}
+    for name, call in calls.items():
+        before = ps.launches
+        out[name], job_ms[name] = ms_of(call)
+        launches[name] = ps.launches - before
+    total = ps.launches  # just after
+    check(dk.launches == 0 and fa.launches == 0, "the drivers launched another kernel")
+    for name, res in out.items():
+        check(launches[name] == res.iterations,
+              f"{name}: {launches[name]} B1 launches for {res.iterations} sweeps")
+    check(core.get_session(g) is sess and core.get_session(g, device=dev) is sess,
+          "a second driver call got another session")
+    check(sess._staged is staged and staged._packed_tiles.keys() == tiles_before.keys()
+          and all(staged._packed_tiles[k] is v for k, v in tiles_before.items()),
+          "a second driver call staged the graph again")
+    check(np.array_equal(out["pagerank"].attrs.view(np.int32), ref.view(np.int32)),
+          "pagerank(g) != the main path's PageRank bitwise")
+    check(np.array_equal(out["bfs"].attrs, bfs[3].attrs), "bfs(g, r) != the batch's member")
+    mb = out["multi_bfs"]
+    check(mb.fused and mb.iterations == bfs.iterations, "multi_bfs did not fuse or took other sweeps")
+    for a, b in zip(mb, bfs):
+        check(np.array_equal(a.attrs, b.attrs), "multi_bfs != the main path's BFS batch")
+    for name, res, depths in (("sssp", [out["sssp"]], [bfs[3]]), ("multi_sssp", out["multi_sssp"], bfs)):
+        for d, b in zip(res, depths):
+            want = np.where(b.attrs < core.INF_DEPTH, b.attrs.astype(np.float32), np.float32(np.inf))
+            check(np.array_equal(d.attrs.view(np.int32), want.view(np.int32)),
+                  f"{name} on the unweighted graph != the BFS depths")
+    emit(
+        "drivers", launches={**launches, "total": total}, sweeps={k: r.iterations for k, r in out.items()},
+        ms_per_sweep={k: 1e3 * r.meters.wall_seconds / r.iterations for k, r in out.items()},
+        job_ms=job_ms, multi_bfs_fused=mb.fused, same_session=True, nvidia_smi=smi,
+    )
+    return total
+
+
+def count_distinct(a: np.ndarray) -> int:
+    """Distinct values by sorting (np.unique hashes from NumPy 2.3 on, far slower)."""
+    a = np.sort(a)
+    return int(a.size > 0) + int(np.count_nonzero(a[1:] != a[:-1]))
+
+
+def wcc_scc(core, ps, dk, fa, el, P, smi) -> int:
+    """wcc(el) and scc(el) against scipy's weak and strong components."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from repro_torch.core import algorithms as alg
+
+    runs = []
+
+    class Recorded(core.GraphSession):
+        """Times each run, with the tile staging (lazy, once per session) apart."""
+
+        def run(self, plan):
+            before, t = ps.launches, time.perf_counter()
+            self._staged.packed_tiles(self.packing, self.device)
+            torch.cuda.synchronize()
+            stage_s = time.perf_counter() - t
+            res = super().run(plan)
+            runs.append({"program": plan.program.name, "sweeps": res.iterations,
+                         "run_s": time.perf_counter() - t, "stage_s": stage_s,
+                         "sweep_s": res.meters.wall_seconds, "launches": ps.launches - before})
+            return res
+
+    alg.GraphSession = Recorded
+    try:
+        ps.launches = 0  # every count to 0 just before wcc and scc
+        dk.launches = 0
+        fa.launches = 0
+        t0 = time.perf_counter()
+        w = alg.wcc(el, P=P)
+        t_wcc = time.perf_counter() - t0
+        labels = alg.scc(el, P=P)
+        t_scc = time.perf_counter() - t0 - t_wcc
+        counts = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    finally:
+        alg.GraphSession = core.GraphSession
+    sweeps = sum(r["sweeps"] for r in runs)
+    check(counts == {"packed_sweep": sweeps, "dsss_spmv": 0, "flash_attention": 0},
+          f"wcc/scc launched {counts} over {sweeps} sweeps")
+    t1 = time.perf_counter()
+    A = coo_matrix((np.ones(el.m, np.float32), (el.src, el.dst)), shape=(el.n, el.n)).tocsr()
+    n_weak, weak = connected_components(A, directed=True, connection="weak")
+    n_strong, strong = connected_components(A, directed=True, connection="strong")
+    t_scipy = time.perf_counter() - t1
+    _, first = np.unique(weak, return_index=True)  # the least vertex id of each component
+    check(w.converged and np.array_equal(w.attrs, first[weak].astype(w.attrs.dtype)),
+          "WCC labels != the least id of each weak component")
+    pairs = count_distinct(labels.astype(np.int64) * n_strong + strong)
+    n_labels = count_distinct(labels)
+    check(pairs == n_labels == n_strong, f"SCC partition differs: {n_labels} labels, {n_strong} SCCs, {pairs} pairs")
+    run_s = {k: sum(r["run_s"] for r in runs if (r["program"] == "wcc") == (k == "wcc")) for k in ("wcc", "scc")}
+    emit(
+        "wcc_scc", n=el.n, m=el.m, P=P, launches=counts, sweeps=sweeps,
+        wcc={"sweeps": w.iterations, "components": int(n_weak), "seconds": t_wcc,
+             "session_run_s": run_s["wcc"], "host_s": t_wcc - run_s["wcc"],
+             "stage_s": runs[0]["stage_s"], "ms_per_sweep": 1e3 * w.meters.wall_seconds / w.iterations},
+        scc={"rounds": sum(r["program"] == "scc_fwd" for r in runs), "components": int(n_strong),
+             "sweeps": sum(r["sweeps"] for r in runs if r["program"] != "wcc"), "seconds": t_scc,
+             "session_run_s": run_s["scc"], "host_s": t_scc - run_s["scc"],
+             "stage_s": sum(r["stage_s"] for r in runs if r["program"] != "wcc"),
+             "sweep_s": sum(r["sweep_s"] for r in runs if r["program"] != "wcc")},
+        runs=runs[:12], scipy_s=t_scipy, nvidia_smi=smi,
+    )
+    return counts["packed_sweep"]
+
+
+def baselines(core, ps, dk, fa, g, pb, pr, spu_per_block, spu_packed, smi) -> None:
+    """TurboGraph-like PageRank at scale 22: SPU's bits and the n·P·Ba re-reads."""
+    from repro_torch.core.baselines import TurboGraphLikeEngine
+
+    eng = TurboGraphLikeEngine(g, pr, session=pb)  # the per-block path's staged blocks
+    check(eng.execution == "per_block" and eng.resident == frozenset(), "TurboGraph-like did not run per-block")
+    ps.launches = 0  # every count to 0 just before the baseline
+    dk.launches = 0
+    fa.launches = 0
+    res, run_ms = ms_of(lambda: eng.run(10, tol=0.0))
+    counts = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    check(counts == {"packed_sweep": 0, "dsss_spmv": 0, "flash_attention": 0},
+          f"the TurboGraph-like schedule launched a kernel: {counts}")
+    check(res.meters.iterations == 10, f"TurboGraph-like ran {res.meters.iterations} sweeps")
+    for label, other in (("per-block SPU", spu_per_block), ("packed SPU", spu_packed)):
+        check(np.array_equal(res.attrs.view(np.int32), other.view(np.int32)),
+              f"TurboGraph-like PageRank != {label} bitwise")
+    per = res.meters.per_iteration()
+    nonempty = len(pb.block_keys)
+    want_read = (g.P + nonempty) * g.interval_size * pr.attr_bytes
+    want_write = g.P * g.interval_size * pr.attr_bytes
+    check(per.bytes_read_intervals == want_read and per.bytes_written_intervals == want_write,
+          f"TurboGraph-like interval bytes {per.bytes_read_intervals}/{per.bytes_written_intervals}, "
+          f"want {want_read}/{want_write}")
+    emit(
+        "baselines", strategy="turbograph-like", launches=counts, sweeps=res.meters.iterations,
+        ms_per_sweep=1e3 * res.meters.wall_seconds / res.meters.iterations, run_ms=run_ms,
+        bytes_read_intervals_per_sweep=per.bytes_read_intervals,
+        bytes_written_intervals_per_sweep=per.bytes_written_intervals,
+        bytes_read_edges_per_sweep=per.bytes_read_edges, nonempty_blocks=nonempty,
+        bitwise_vs_spu=True, nvidia_smi=smi,
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -893,6 +1118,10 @@ def main() -> None:
         peak_device_bytes=peak_bytes,
     )
 
+    # -- phases 3d-3e: the plain scan by name, and the drivers ---------------
+    packed_scan_path(core, ps, dk, fa, g, sess, budget, pr, bfs_plans, bfs, smi)
+    driver_launches = drivers(core, ps, dk, fa, dev, g, ref, bfs, roots, smi)
+
     # -- phase 3b: where a sweep's device time goes (torch.profiler) ---------
     from torch.profiler import ProfilerActivity, profile
 
@@ -1124,6 +1353,7 @@ def main() -> None:
         bfs_run_ms=pb_bfs_run_ms, host_blocks_s=t_host_blocks,
         stage_and_warm_s=t_stage_blocks, peak_device_bytes=torch.cuda.max_memory_allocated(dev),
     )
+    baselines(core, ps, dk, fa, g, pb, pr, pb_runs["spu"].attrs, ref, smi)
 
     # -- phase 7: one PageRank sweep from the sub-shard kernel -----------------
     # Twice: through the pass entry (one launch per phase for all sub-shards)
@@ -1260,8 +1490,14 @@ def main() -> None:
     )
     del hub_mat, slots, hcol, hcrow
 
+    # -- phase 8b: wcc and scc on the scale-22 edge list ----------------------
+    del pb, sess, tiles, staged, b2_staged, host_blocks, attrs, acc, aux, contrib
+    core.clear_session_cache()
+    torch.cuda.empty_cache()
+    ws_launches = wcc_scc(core, ps, dk, fa, el, g.P, smi)
+
     # -- phases 9-11: the LM serving path and kernel B3 -----------------------
-    del pb, sess, tiles, staged, b2_staged, host_blocks, g, el, attrs, acc, aux, contrib
+    del g, el
     torch.cuda.empty_cache()
     b3_check = flash_attention_vs_plain(dev)
     lm_cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas")
@@ -1274,7 +1510,9 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/packed_sweep.cu",
         "replaces": "src/repro/kernels/packed_sweep.py:86",
-        "launches": main_launches,
+        "launches": main_launches + driver_launches + ws_launches,
+        "launches_by_path": {"main_path": main_launches, "packed_scan_path": 0,
+                             "drivers": driver_launches, "wcc_scc": ws_launches},
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

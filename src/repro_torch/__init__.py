@@ -9,11 +9,16 @@ Entry points run on the CUDA card unless the caller passes
 kernel's plain PyTorch version runs in its place.
 
 Ported so far, at device residency: the packed path — ``GraphSession.run``
-/ ``run_batch`` → the tile-sweep kernel (``kernels/csrc/packed_sweep.cu``)
-— and the per-block path (``execution="per_block"``: the SPU/DPU/MPU
-schedules and the fused strategy), with the sub-shard ToHub kernel
+/ ``run_batch`` → the tile-sweep kernel (``kernels/csrc/packed_sweep.cu``),
+or its plain version under ``execution="packed"`` — and the per-block path
+(``execution="per_block"``: the SPU/DPU/MPU schedules, the fused strategy
+and registered custom schedules such as the TurboGraph-like baseline of
+``repro_torch.core.baselines``), with the sub-shard ToHub kernel
 (``kernels/csrc/dsss_spmv.cu``) behind ``GraphSession.kernel_operands`` and
-``repro_torch.kernels.ops.subshard_update``.
+``repro_torch.kernels.ops.subshard_update``. Above the session: the §IV
+drivers (``pagerank``, ``bfs``, ``wcc``, ``sssp``, ``scc``, ``multi_bfs``,
+``multi_sssp``), the session cache (``get_session``) and the
+``NXGraphEngine`` shim.
 """
 from repro_torch.core import (
     BFS,
@@ -27,12 +32,23 @@ from repro_torch.core import (
     GraphSession,
     MaxLabelForward,
     Meters,
+    NXGraphEngine,
     PackedSweep,
     PageRank,
     ReachBackward,
     Result,
     VertexProgram,
+    bfs,
     build_dsss,
+    clear_session_cache,
+    get_session,
+    multi_bfs,
+    multi_sssp,
+    pagerank,
+    scc,
+    sssp,
+    turbograph_like_io,
+    wcc,
 )
 from repro_torch.device import resolve_device
 from repro_torch.graph import EdgeList, degree_and_densify
@@ -58,4 +74,15 @@ __all__ = [
     "ReachBackward",
     "INF_DEPTH",
     "resolve_device",
+    "get_session",
+    "clear_session_cache",
+    "NXGraphEngine",
+    "turbograph_like_io",
+    "pagerank",
+    "bfs",
+    "wcc",
+    "sssp",
+    "scc",
+    "multi_bfs",
+    "multi_sssp",
 ]

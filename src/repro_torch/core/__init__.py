@@ -1,8 +1,12 @@
 """NXgraph core, ported to PyTorch: layout, programs, I/O model, session.
 
 - :mod:`repro_torch.core.dsss` — Destination-Sorted Sub-Shard layout and tile packing
-- :mod:`repro_torch.core.session` — GraphSession at device residency
+- :mod:`repro_torch.core.session` — GraphSession at device residency, the session cache
 - :mod:`repro_torch.core.plan` — ExecutionPlan
+- :mod:`repro_torch.core.engine` — the NXGraphEngine shim over Session/Plan
+- :mod:`repro_torch.core.algorithms` — PageRank/BFS/WCC/SSSP/SCC drivers (§IV),
+  plus batched ``multi_bfs`` / ``multi_sssp``
+- :mod:`repro_torch.core.baselines` — TurboGraph-like + GraphChi-like baselines (§III-C)
 - :mod:`repro_torch.core.vertex_programs` — Initialize/Update/Output programs
 - :mod:`repro_torch.core.iomodel` — Table II I/O closed forms + adaptive selection
 - :mod:`repro_torch.core.identities` — the ⊕-identity families
@@ -17,6 +21,7 @@ from repro_torch.core.iomodel import (
     mpu_q,
     select_strategy,
     spu_io,
+    turbograph_like_io,
 )
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.session import (
@@ -25,7 +30,10 @@ from repro_torch.core.session import (
     GraphSession,
     Meters,
     Result,
+    clear_session_cache,
+    get_session,
 )
+from repro_torch.core.engine import NXGraphEngine
 from repro_torch.core.vertex_programs import (
     BFS,
     INF_DEPTH,
@@ -36,6 +44,15 @@ from repro_torch.core.vertex_programs import (
     ReachBackward,
     VertexProgram,
 )
+from repro_torch.core.algorithms import (
+    bfs,
+    multi_bfs,
+    multi_sssp,
+    pagerank,
+    scc,
+    sssp,
+    wcc,
+)
 
 __all__ = [
     "DSSSGraph",
@@ -44,6 +61,9 @@ __all__ = [
     "GraphSession",
     "ExecutionPlan",
     "BatchResult",
+    "get_session",
+    "clear_session_cache",
+    "NXGraphEngine",
     "Meters",
     "MODEL_METER_FIELDS",
     "Result",
@@ -55,6 +75,7 @@ __all__ = [
     "mpu_q",
     "modelled_io",
     "select_strategy",
+    "turbograph_like_io",
     "VertexProgram",
     "PageRank",
     "BFS",
@@ -63,4 +84,11 @@ __all__ = [
     "MaxLabelForward",
     "ReachBackward",
     "INF_DEPTH",
+    "pagerank",
+    "bfs",
+    "wcc",
+    "sssp",
+    "scc",
+    "multi_bfs",
+    "multi_sssp",
 ]

@@ -17,6 +17,7 @@ __all__ = [
     "select_strategy",
     "StrategyChoice",
     "modelled_io",
+    "turbograph_like_io",
 ]
 
 
@@ -63,6 +64,17 @@ def mpu_io(p: IOParams, B_M: int) -> tuple[float, float]:
     return float(p.m * p.Be + iv + hub), float(iv + hub)
 
 
+def turbograph_like_io(p: IOParams, B_M: int) -> tuple[float, float]:
+    """TurboGraph/GridGraph-style block-load strategy (paper §III-C).
+
+    With the I/O-optimal partitioning ``P* = 2n·Ba/B_M``:
+      read  = m·Be + 2(n·Ba)²/B_M + n·Ba
+      write = n·Ba
+    """
+    read = p.m * p.Be + 2 * (p.n * p.Ba) ** 2 / max(B_M, 1) + p.n * p.Ba
+    return float(read), float(p.n * p.Ba)
+
+
 @dataclasses.dataclass(frozen=True)
 class StrategyChoice:
     strategy: str  # "spu" | "mpu" | "dpu"
@@ -85,6 +97,9 @@ def modelled_io(p: IOParams, B_M: int | None, strategy: str) -> tuple[float, flo
         return dpu_io(p)
     if strategy == "mpu":
         return mpu_io(p, B_M if B_M is not None else 0)
+    if strategy == "turbograph-like":
+        # Its P* term needs a B_M; "unlimited" is both attribute copies fitting.
+        return turbograph_like_io(p, B_M if B_M is not None else 2 * p.n * p.Ba)
     raise ValueError(f"no closed form for strategy {strategy!r}")
 
 

@@ -66,8 +66,9 @@ class ExecutionPlan:
 
     Args:
       program: the vertex program (frozen dataclass — hashable).
-      strategy: "auto" | "spu" | "dpu" | "mpu" | "fused". "auto" resolves
-        against the session's memory budget (the paper's adaptive choice).
+      strategy: "auto" | "spu" | "dpu" | "mpu" | "fused" | a registered
+        custom strategy. "auto" resolves against the session's memory
+        budget (the paper's adaptive choice).
       max_iters: update-sweep budget.
       tol: convergence tolerance handed to ``program.changed``.
       residency: per-plan override of the session's residency axis
@@ -128,6 +129,12 @@ class ExecutionPlan:
         """Thawed Initialize kwargs, ready for ``program.init_attrs(...)``."""
         return {k: _thaw_value(v) for k, v in self.program_kwargs}
 
+    def with_kwargs(self, **kw) -> "ExecutionPlan":
+        """A copy of this plan with updated program kwargs (e.g. a new root)."""
+        merged = self.kwargs_dict()
+        merged.update(kw)
+        return dataclasses.replace(self, program_kwargs=merged)
+
     def batch_key(self) -> tuple:
         """Plans sharing a batch_key may fuse into one sweep sequence.
 
@@ -144,3 +151,7 @@ class ExecutionPlan:
             self.execution,
             self.activity,
         )
+
+    def compatible_with(self, other: "ExecutionPlan") -> bool:
+        """True iff the two plans may fuse into one sweep sequence."""
+        return self.batch_key() == other.batch_key()

@@ -6,7 +6,7 @@ number of :class:`repro_torch.core.plan.ExecutionPlan` jobs against it;
 ``run_batch`` fuses K compatible plans into one sweep sequence whose
 tensors carry a leading ``(K,)`` query axis.
 
-Two execution paths, the ``execution`` axis:
+Three execution paths, the ``execution`` axis:
 
 * ``"packed_kernel"`` (and ``"auto"``, which resolves to it for SPU, DPU
   and MPU): each update sweep (:func:`_iteration_packed`) computes the
@@ -19,6 +19,10 @@ Two execution paths, the ``execution`` axis:
   order of every schedule; the strategies differ in the slow-tier traffic
   the paper models, which ``_charge_packed_*`` charge to :class:`Meters`
   from the layout's metadata.
+* ``"packed"``: the same sweep with the tile sweep's plain PyTorch version
+  (:func:`repro_torch.kernels.packed_sweep.packed_sweep_update_ref`) in
+  place of the kernel, on the card as on the CPU: the JAX package's XLA
+  scan path, run only when named.
 * ``"per_block"``: the paper's own schedules, one sub-shard at a time —
   SPU (Algorithm 5, :func:`_iteration_spu`), DPU and MPU (Algorithms 6
   and 7, :func:`_iteration_two_phase`) with their hubs — over the padded
@@ -35,14 +39,21 @@ Selective execution: monotone programs under ``activity="auto"`` skip the
 source intervals (per-block) or tiles (packed) that did not change in the
 previous sweep; results are bit-identical to full sweeps.
 
+Custom schedules (the baselines of :mod:`repro_torch.core.baselines`) plug
+in through :meth:`GraphSession.register_strategy` and run per-block.
+:func:`get_session` keeps one staged session per graph object and variant
+(the drivers of :mod:`repro_torch.core.algorithms` share it).
+
 Not ported yet, and refused with :class:`NotImplementedError` naming the
-ROADMAP item: host and disk residency, the ``"packed"`` (plain scan)
-execution path and :meth:`GraphSession.register_strategy`.
+ROADMAP item: host and disk residency (and a session's
+``host_memory_budget``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
+from collections import OrderedDict
 from typing import Any, Callable
 
 import numpy as np
@@ -63,6 +74,7 @@ from repro_torch.kernels.ops import prepare_from_host_block
 from repro_torch.kernels.packed_sweep import (
     _edge_aux,
     packed_sweep_update,
+    packed_sweep_update_ref,
     prepare_packed_tiles,
 )
 
@@ -73,6 +85,9 @@ __all__ = [
     "Result",
     "BatchResult",
     "CompiledPlan",
+    "IdentityLRU",
+    "get_session",
+    "clear_session_cache",
 ]
 
 # The modelled Meters fields: identical to the JAX package's for the same
@@ -92,10 +107,8 @@ MODEL_METER_FIELDS = (
 _NOT_PORTED = {
     "host": "residency='host' is not ported yet (ROADMAP A8)",
     "disk": "residency='disk' is not ported yet (ROADMAP A9)",
-    "packed": "execution='packed' (the plain tile scan as its own path) is "
-    "not ported yet (ROADMAP A4)",
-    "register_strategy": "GraphSession.register_strategy and the baseline "
-    "schedules of core/baselines.py are not ported yet (ROADMAP A5)",
+    "host_memory_budget": "host_memory_budget (the disk tier's host RAM "
+    "bound) is not ported yet (ROADMAP A9)",
 }
 
 
@@ -233,6 +246,7 @@ class _RunContext:
     fetcher: "_BlockFetcher" = None  # type: ignore[assignment]
     activity: str = "off"
     aux_batched: bool = False
+    execution: str = "packed_kernel"
 
     @property
     def block_keys(self) -> frozenset:
@@ -638,7 +652,9 @@ def _iteration_fused(ctx: _RunContext, attrs, active, meters: Meters):
     return new, changed.cpu().numpy()
 
 
-_STRATEGIES = {
+# The per-block schedules by strategy name; GraphSession.register_strategy
+# adds custom ones (core/baselines.py registers "turbograph-like").
+_STRATEGIES: dict[str, Callable] = {
     "spu": _iteration_spu,
     "dpu": _iteration_dpu,
     "mpu": _iteration_mpu,
@@ -724,12 +740,15 @@ def _sweep_tile_slab(ctx: _RunContext, attrs_flat, acc, tiles, row_active, windo
     """Run the tile sweep over the staged tiles, restricted to ``window``.
 
     ``window=None`` or an all-True window sweeps every tile; otherwise the
-    active tiles go to the kernel as an ascending index list (ascending
+    active tiles go to the sweep as an ascending index list (ascending
     keeps the full sweep's fold order), and an all-False window is a no-op.
+    ``execution="packed"`` runs the plain version, ``"packed_kernel"`` the
+    kernel.
     """
     sess, prog = ctx.session, ctx.program
+    sweep = packed_sweep_update_ref if ctx.execution == "packed" else packed_sweep_update
     if window is None or window.all():
-        return packed_sweep_update(
+        return sweep(
             prog, attrs_flat, acc, ctx.aux, tiles, row_active,
             sess.has_weights, ctx.aux_batched,
         )
@@ -737,14 +756,14 @@ def _sweep_tile_slab(ctx: _RunContext, attrs_flat, acc, tiles, row_active, windo
     if local.size == 0:
         return acc
     idx = torch.from_numpy(local.astype(np.int32)).to(sess.device)
-    return packed_sweep_update(
+    return sweep(
         prog, attrs_flat, acc, ctx.aux, tiles, row_active, sess.has_weights,
         ctx.aux_batched, idx, int(local.size),
     )
 
 
 def _iteration_packed(ctx: _RunContext, attrs, active, meters: Meters):
-    """One update sweep for any of SPU/DPU/MPU.
+    """One update sweep for any of SPU/DPU/MPU, ``"packed"`` or ``"packed_kernel"``.
 
     Meters from metadata → pre-iteration globals → accumulator init → tile
     sweep (compacted to the active tiles under selective execution) →
@@ -985,13 +1004,16 @@ class GraphSession:
         ``"auto"``, which means ``"host"`` when a ``memory_budget`` is set
         (not ported yet) and ``"device"`` otherwise.
       execution: ``"packed_kernel"`` (every sweep runs the tile-sweep
-        kernel), ``"per_block"`` (the paper's schedules, one sub-shard at a
-        time) or ``"auto"`` (packed_kernel). The ``"fused"`` strategy runs
-        per-block whatever is asked.
+        kernel), ``"packed"`` (the same sweep with the kernel's plain
+        version), ``"per_block"`` (the paper's schedules, one sub-shard at a
+        time) or ``"auto"`` (packed_kernel). The ``"fused"`` strategy and
+        registered custom strategies run per-block whatever is asked.
       packing: ``"adaptive"``, ``"subshard"`` or ``"auto"`` (subshard for
         ``src_sorted`` graphs, adaptive otherwise).
       Be: bytes per edge in the I/O model (+4 for weighted graphs).
       Bv: bytes per vertex id.
+      staged: the graph's staged state, shared by sessions over the same
+        graph object (:func:`get_session` passes it); ``None`` stages anew.
     """
 
     def __init__(
@@ -1005,10 +1027,11 @@ class GraphSession:
         packing: str = "auto",
         Be: int = 8,
         Bv: int = 4,
+        staged: "_StagedGraph | None" = None,
     ):
         _check_axis("residency", residency, ("device", "auto"), ("host", "disk"))
         _check_axis(
-            "execution", execution, ("packed_kernel", "per_block", "auto"), ("packed",)
+            "execution", execution, ("packed_kernel", "packed", "per_block", "auto"), ()
         )
         if packing not in ("adaptive", "subshard", "auto"):
             raise ValueError(
@@ -1031,7 +1054,9 @@ class GraphSession:
         self.Be = Be + (4 if self.has_weights else 0)
         self.Bv = Bv
         self._hub_d = graph.mean_hub_in_degree()
-        self._staged = _StagedGraph(graph)
+        if staged is not None and staged.graph is not graph:
+            raise ValueError("staged state belongs to another graph object")
+        self._staged = staged if staged is not None else _StagedGraph(graph)
         self._residency: dict[int, frozenset] = {}  # Ba -> resident set
         self._compiled: dict[tuple, CompiledPlan] = {}
 
@@ -1065,27 +1090,43 @@ class GraphSession:
         return mode
 
     def resolved_execution(self, strategy: str, override: str | None = None) -> str:
-        """Resolve the execution axis to ``"packed_kernel"`` or ``"per_block"``.
+        """Resolve the execution axis: ``"packed_kernel"``, ``"packed"`` or ``"per_block"``.
 
-        ``strategy`` is resolved (not ``"auto"``). The packed path applies
-        to the SPU/DPU/MPU schedules; ``"fused"`` runs per-block even when
-        a packed mode was asked for (results and meters are the same
-        either way). ``"auto"`` is the kernel: the card plays the TPU's
-        role here.
+        ``strategy`` is resolved (not ``"auto"``). The packed modes apply
+        to the SPU/DPU/MPU schedules; ``"fused"`` and registered custom
+        strategies run per-block even when a packed mode was asked for
+        (results and meters are the same either way). ``"auto"`` is the
+        kernel: the card plays the TPU's role here. ``"packed"``, the
+        plain version of the tile sweep, runs only when named.
         """
         mode = override or self.execution
         if strategy not in ("spu", "dpu", "mpu"):
             return "per_block"
         if mode == "auto":
             mode = "packed_kernel"
-        if mode == "packed":
-            raise NotImplementedError(_NOT_PORTED["packed"])
         return mode
 
     @classmethod
     def register_strategy(cls, name: str, iteration_fn: Callable) -> None:
-        """Custom per-iteration schedules (the JAX package's baselines): not ported."""
-        raise NotImplementedError(_NOT_PORTED["register_strategy"])
+        """Register a custom per-iteration schedule (e.g. a baseline).
+
+        ``iteration_fn(ctx, attrs, active, meters) -> (attrs, active_next)``
+        is called once per update sweep, on the per-block path:
+
+        * ``ctx`` is the run's :class:`_RunContext` (session, program,
+          aux and its interval views, ``valid``, ``tol``, ``K``, the block
+          ``fetcher``, ``activity``, ``aux_batched``);
+        * ``attrs`` is the ``(K, P, interval_size)`` tensor on
+          ``session.device``, and the schedule returns the new one there;
+        * ``active`` and ``active_next`` are ``(K, P)`` numpy bool: the
+          intervals that changed in the previous sweep, and in this one;
+        * ``meters`` is the run's :class:`Meters`, which the schedule
+          charges (edge bytes are charged by ``ctx.fetcher``).
+
+        A plan names the schedule by ``strategy=name``; it pins no
+        sub-shard in the fast tier.
+        """
+        _STRATEGIES[name] = iteration_fn
 
     def fused_arrays(self) -> dict:
         """The fused path's whole-graph edge arrays, staged once per device.
@@ -1192,6 +1233,8 @@ class GraphSession:
             elif strategy == "mpu":
                 Q = mpu_q(params, self.memory_budget or 0)
             return StrategyChoice(strategy, Q, 0.0, 0.0)
+        if strategy in _STRATEGIES:
+            return StrategyChoice(strategy, 0, 0.0, 0.0)
         raise ValueError(f"unknown strategy {strategy!r}")
 
     def _resolve_residency(self, strategy: str, params: IOParams) -> frozenset:
@@ -1295,8 +1338,9 @@ class GraphSession:
             fetcher=fetcher,
             activity=compiled.activity,
             aux_batched=aux_batched,
+            execution=compiled.execution,
         )
-        if compiled.execution == "packed_kernel":
+        if compiled.execution in ("packed", "packed_kernel"):
             iteration = _iteration_packed
         else:
             iteration = _STRATEGIES[compiled.choice.strategy]
@@ -1352,6 +1396,97 @@ class GraphSession:
             fused=True,
             activity_log=tuple(activity_log),
         )
+
+
+# ---------------------------------------------------------------------------
+# Identity-keyed weak LRU: the session cache below and the drivers' sharded
+# graph cache (core/algorithms.py).
+# ---------------------------------------------------------------------------
+class IdentityLRU:
+    """Small LRU keyed by ``(id(obj), *extra)`` with a weakref liveness guard.
+
+    Keyed by identity because the cached value aliases the object's arrays;
+    the weakref invalidates a slot whose object died, so a recycled id
+    never serves a stale value.
+    """
+
+    def __init__(self, size: int = 8):
+        self._size = size
+        self._entries: OrderedDict[tuple, tuple[weakref.ref, Any]] = OrderedDict()
+
+    def get_or_build(self, obj, extra: tuple, factory: Callable):
+        key = (id(obj), *extra)
+        entry = self._entries.get(key)
+        if entry is not None and entry[0]() is obj:
+            self._entries.move_to_end(key)
+            return entry[1]
+        value = factory()
+        self._entries[key] = (weakref.ref(obj), value)
+        while len(self._entries) > self._size:
+            self._entries.popitem(last=False)
+        return value
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+
+# One slot per graph object: its staged state and the session variants
+# built over it, so a change of budget or axis never stages the graph
+# again. The cache keeps the last `size` graphs staged (a cached session
+# holds its graph); clear_session_cache() releases them.
+_SESSION_LRU = IdentityLRU(size=8)
+
+
+def get_session(
+    graph: DSSSGraph,
+    *,
+    device: str | torch.device | None = None,
+    memory_budget: int | None = None,
+    host_memory_budget: int | None = None,
+    residency: str = "auto",
+    execution: str = "auto",
+    packing: str = "auto",
+    Be: int = 8,
+    Bv: int = 4,
+) -> GraphSession:
+    """The session for this graph object and variant, staged at most once (LRU of 8).
+
+    Use it for graph objects the caller keeps alive across calls; for a
+    throwaway graph construct :class:`GraphSession` directly, so the staged
+    state dies with it. Variants (device, budget, residency, execution,
+    packing, byte sizes: every session axis is in the key) share one
+    :class:`_StagedGraph`, whose device mirrors and tile layouts are built
+    once per device and packing. ``device=None`` is the CUDA card.
+    ``host_memory_budget`` belongs to the disk tier, not ported yet: any
+    value but ``None`` raises.
+    """
+    if host_memory_budget is not None:
+        raise NotImplementedError(_NOT_PORTED["host_memory_budget"])
+    dev = resolve_device(device)
+    slot = _SESSION_LRU.get_or_build(
+        graph, (), lambda: {"staged": _StagedGraph(graph), "variants": {}}
+    )
+    key = (dev, memory_budget, residency, execution, packing, Be, Bv)
+    session = slot["variants"].get(key)
+    if session is None:
+        session = GraphSession(
+            graph,
+            device=dev,
+            memory_budget=memory_budget,
+            residency=residency,
+            execution=execution,
+            packing=packing,
+            Be=Be,
+            Bv=Bv,
+            staged=slot["staged"],
+        )
+        slot["variants"][key] = session
+    return session
+
+
+def clear_session_cache() -> None:
+    """Release every cached session (and its staged state)."""
+    _SESSION_LRU.clear()
 
 
 def _check_axis(name: str, value: str, ported: tuple, later: tuple) -> None:

@@ -1,5 +1,15 @@
 """Graph substrate of the port: generators and the degreeing pass."""
-from repro_torch.graph.generators import erdos_renyi, ring, rmat, star, zipf
+from repro_torch.graph.generators import (
+    complete,
+    erdos_renyi,
+    paper_dataset,
+    paper_dataset_names,
+    random_geometric,
+    ring,
+    rmat,
+    star,
+    zipf,
+)
 from repro_torch.graph.preprocess import EdgeList, degree_and_densify
 
 __all__ = [
@@ -8,6 +18,10 @@ __all__ = [
     "erdos_renyi",
     "ring",
     "star",
+    "random_geometric",
+    "complete",
+    "paper_dataset",
+    "paper_dataset_names",
     "degree_and_densify",
     "EdgeList",
 ]

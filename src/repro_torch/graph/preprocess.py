@@ -32,13 +32,40 @@ class EdgeList:
     def m(self) -> int:
         return int(self.src.shape[0])
 
+    def index_to_id(self, indices: np.ndarray) -> np.ndarray:
+        """Raw index -> dense id (vectorised binary search on the mapping)."""
+        pos = np.searchsorted(self.id_to_index, indices)
+        pos = np.clip(pos, 0, len(self.id_to_index) - 1)
+        ok = self.id_to_index[pos] == indices
+        if not np.all(ok):
+            raise KeyError("index not present in graph (isolated or unknown)")
+        return pos.astype(np.int32)
+
+    def reversed(self) -> "EdgeList":
+        """The transpose graph (SCC's backward phase)."""
+        return EdgeList(
+            src=self.dst,
+            dst=self.src,
+            n=self.n,
+            out_degree=self.in_degree,
+            in_degree=self.out_degree,
+            id_to_index=self.id_to_index,
+            weights=self.weights,
+        )
+
     def symmetrized(self) -> "EdgeList":
         """Undirected view: both edge directions, deduplicated (for WCC)."""
         src = np.concatenate([self.src, self.dst])
         dst = np.concatenate([self.dst, self.src])
         key = src.astype(np.int64) * self.n + dst
         if self.weights is None:
-            uniq = np.unique(key)
+            # Sort and drop repeats: np.unique without return_* takes a hash
+            # table from NumPy 2.3 on, which is far slower than a sort at
+            # 10^8 keys.
+            key = np.sort(key)
+            first = np.ones(key.shape, dtype=bool)
+            first[1:] = key[1:] != key[:-1]
+            uniq = key[first]
             w2 = None
         else:
             w = np.concatenate([self.weights] * 2)

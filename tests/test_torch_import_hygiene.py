@@ -30,6 +30,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "import repro_torch.kernels.flash_attention, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.launch.bench_dsss\n"
         "import repro_torch.launch.bench_packed, repro_torch.launch.b1_cases\n"
+        "import repro_torch.core.algorithms, repro_torch.core.engine\n"
+        "import repro_torch.core.baselines\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -175,7 +177,7 @@ def test_missing_nvcc_raises(monkeypatch):
     [
         ({"residency": "host"}, NotImplementedError),
         ({"residency": "disk"}, NotImplementedError),
-        ({"execution": "packed"}, NotImplementedError),
+        ({"execution": "packed", "residency": "host"}, NotImplementedError),
         ({"execution": "per_block", "residency": "host"}, NotImplementedError),
         ({"residency": "nowhere"}, ValueError),
     ],
@@ -190,7 +192,9 @@ def test_unported_plans_raise():
     plan = repro_torch.ExecutionPlan(BFS(), max_iters=4)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         GraphSession(g, device="cpu", memory_budget=1000).run(plan)  # auto -> host
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        GraphSession(g, device="cpu").run(
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        GraphSession(g, device="cpu", memory_budget=1000).run(
             repro_torch.ExecutionPlan(BFS(), execution="packed", max_iters=4)
         )
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        repro_torch.get_session(g, device="cpu", host_memory_budget=1000)

@@ -10,6 +10,9 @@ repeated launch must give the same bits; the LM serving path with
 ``attn_impl="pallas"`` must launch it once per layer. The per-block
 path's ordered reductions must give the CPU's bits; and per-block
 SPU/DPU/MPU sessions must equal packed_kernel sessions bitwise on the card.
+``execution="packed"`` (the tile sweep's plain version, by name) must give
+B1's bits and meters without launching it, and the §IV drivers on the card
+the CPU's results, with one B1 launch per sweep.
 
 Needs a CUDA device (``-m cuda``); skips without one, since the kernels
 have no CPU mode. Imports no JAX, so it runs where only the port is installed:
@@ -486,6 +489,96 @@ def test_per_block_sessions_bitwise_equal_packed_kernel_on_card(strategy, dev):
     for a, b in zip(bb, pb):
         np.testing.assert_array_equal(a.attrs, b.attrs)
     assert bb.meters.model_dict() == pb.meters.model_dict()
+
+
+# ---------------------------------------------------------------------------
+# execution="packed" (the plain tile sweep by name) and the drivers on the card
+# ---------------------------------------------------------------------------
+def _rmat_el(scale, seed):
+    return degree_and_densify(*rmat(scale, edge_factor=8, seed=seed), drop_self_loops=True)
+
+
+@pytest.mark.parametrize("prog", PROGRAMS, ids=lambda p: p.name)
+def test_packed_scan_bitwise_equals_packed_kernel_on_card(prog, dev):
+    """The plain version under "packed" gives B1's bits and meters, and launches no B1."""
+    el = _rmat_el(14, 6)
+    if isinstance(prog, vp.WCC):
+        el = el.symmetrized()
+    w = np.random.default_rng(7).random(el.m).astype(np.float32) + 0.05
+    if isinstance(prog, vp.SSSP):
+        el = degree_and_densify(el.src, el.dst, w)
+    g = build_dsss(el, 8)
+    n, n_pad = g.n, g.n_pad
+    r = np.random.default_rng(3)
+    mask = np.zeros(n_pad, np.int32)
+    mask[:n] = (r.random(n) < 0.9).astype(np.int32)
+    colors = np.full(n_pad, -1, np.int32)
+    colors[:n] = r.integers(0, 3, n)
+    labels = np.full(n_pad, -tid.INF_DEPTH, np.int32)
+    labels[:n][mask[:n] > 0] = np.flatnonzero(mask[:n])
+    reach = np.zeros(n_pad, np.int32)
+    reach[r.choice(n, 20, replace=False)] = 1
+    kw, iters, tol = {
+        "pagerank": ({}, 6, 0.0),
+        "bfs": ({"root": 1}, n + 1, 1e-10),
+        "wcc": ({}, n + 1, 1e-10),
+        "sssp": ({"root": 1}, n + 1, 1e-10),
+        "scc_fwd": ({"labels": labels, "mask": mask}, n + 1, 1e-10),
+        "scc_bwd": ({"reach": reach, "colors": colors, "mask": mask}, n + 1, 1e-10),
+    }[prog.name]
+    budget = 2 * g.interval_size * prog.attr_bytes * (g.P // 2)
+    sess = GraphSession(g, device=dev, memory_budget=budget, residency="device")
+    runs, launches = {}, {}
+    for execution in ("packed", "packed_kernel"):
+        plan = ExecutionPlan(prog, strategy="mpu", max_iters=iters, tol=tol,
+                             execution=execution, program_kwargs=kw)
+        before = ps.launches
+        runs[execution] = sess.run(plan)
+        torch.cuda.synchronize()
+        launches[execution] = ps.launches - before
+    a, b = runs["packed"], runs["packed_kernel"]
+    assert launches == {"packed": 0, "packed_kernel": b.meters.iterations}
+    np.testing.assert_array_equal(a.attrs.view(np.int32), b.attrs.view(np.int32))
+    assert a.iterations == b.iterations and a.meters.model_dict() == b.meters.model_dict()
+
+
+def test_drivers_on_card_match_cpu(dev):
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.baselines import TurboGraphLikeEngine
+
+    el = _rmat_el(12, 2)
+    g = build_dsss(el, 8)
+    roots = [0, 5, 9]
+    card, cpu = {}, {}
+    for where, out in ((dev, card), ("cpu", cpu)):
+        before = ps.launches
+        out["pagerank"] = alg.pagerank(g, iters=10, device=where)
+        out["bfs"] = alg.bfs(g, 5, device=where)
+        out["multi_bfs"] = alg.multi_bfs(g, roots, device=where)
+        out["sssp"] = alg.sssp(g, 5, device=where)
+        out["multi_sssp"] = alg.multi_sssp(g, roots, device=where)
+        out["tg"] = TurboGraphLikeEngine(g, vp.PageRank(), device=where).run(10, tol=0.0)
+        sweeps = sum(out[k].iterations for k in ("pagerank", "bfs", "multi_bfs", "sssp", "multi_sssp"))
+        out["launches"] = (ps.launches - before, sweeps)
+        out["wcc"] = alg.wcc(el, device=where)
+        out["scc"] = alg.scc(el, device=where)
+    launched, sweeps = card["launches"]
+    assert launched == sweeps  # one B1 launch per sweep; TurboGraph-like runs per-block
+    assert cpu["launches"][0] == 0
+    np.testing.assert_allclose(card["pagerank"].attrs, cpu["pagerank"].attrs, rtol=1e-5, atol=1e-8)
+    np.testing.assert_array_equal(card["tg"].attrs.view(np.int32), card["pagerank"].attrs.view(np.int32))
+    for k in ("bfs", "sssp", "wcc"):
+        np.testing.assert_array_equal(card[k].attrs.view(np.int32), cpu[k].attrs.view(np.int32))
+        assert card[k].meters.model_dict() == cpu[k].meters.model_dict()
+    for k in ("multi_bfs", "multi_sssp"):
+        assert card[k].fused and card[k].iterations == cpu[k].iterations
+        for a, b in zip(card[k], cpu[k]):
+            np.testing.assert_array_equal(a.attrs.view(np.int32), b.attrs.view(np.int32))
+    np.testing.assert_array_equal(card["scc"], cpu["scc"])
+    assert card["pagerank"].meters.model_dict() == cpu["pagerank"].meters.model_dict()
+    # A second call on the same graph object gets the same staged session.
+    sess = alg._session(g, 8, None, "auto", "auto", dev)
+    assert alg._session(g, 8, None, "auto", "auto", dev) is sess
 
 
 # ---------------------------------------------------------------------------
