@@ -114,6 +114,25 @@ The engine's surface above the session, on the main path's scale-22 graph
   PageRank sweeps: bitwise equal to SPU per-block and packed, interval
   bytes per sweep exactly (P + non-empty blocks)·isz·Ba read and P·isz·Ba
   written; ms per sweep.
+- host_path (after phase 6): host residency. First h2d_yardstick, a
+  pinned and a pageable 1 GiB host→device copy (CUDA events, GB/s). Then,
+  sharing the main path's staged graph, ``residency="host"`` under budget
+  A (the main path's, below ``2·n_pad·Ba``: nothing pinned, 998 one-tile
+  chunks) and budget B (``2·n_pad·Ba + m·Be/2``: SPU pins about half the
+  tiles): PageRank SPU/DPU/MPU, 10 sweeps after a warm one, bitwise equal
+  to device residency's, model meters identical, ``bytes_h2d`` = sweeps ×
+  the closed form ``packed_kernel_h2d_bytes`` counted from the layout, B1
+  launched once per pinned slab and streamed chunk; ms per sweep, achieved
+  GB/s, the pinned-copy bound, the peak device memory above the session's
+  baseline beside the layout's device tile bytes, and the device-busy
+  share of a 2-sweep SPU run (torch.profiler). Under budget A also: the
+  8-root BFS batch bitwise equal to the device batch, its ``bytes_h2d``
+  the closed form over its activity log, and a K = 8 batch streaming the
+  same bytes a sweep as K = 1; one selective BFS below a full stream and
+  equal to its closed form; ``execution="packed"`` for 2 sweeps (the JAX
+  package's leaves, ``packed_h2d_bytes``); per-block SPU/DPU/MPU for 3
+  sweeps against device per-block (``streamed_block_bytes``); and
+  ``pagerank(g, memory_budget=budget)``, host residency by default.
 - wcc_scc: ``wcc(el)`` and ``scc(el)`` on the scale-22 edge list: WCC
   labels equal the least vertex id of each of scipy's weak components, the
   SCC labels give scipy's strong partition; one B1 launch per sweep;
@@ -121,8 +140,10 @@ The engine's surface above the session, on the main path's scale-22 graph
   in sessions.
 
 Before the card's line, the ``kernels`` line gives each kernel's launches
-on its paths (B1: main path, drivers and wcc_scc, by path in
-``launches_by_path``), time, plain time, bound and library time; B2's are the pass
+on its paths (B1: main path, drivers, wcc_scc and host_path, by path in
+``launches_by_path``; on the host path one launch per pinned slab and
+streamed chunk, and ``host_path`` gives its launches and ms per sweep
+beside the pinned-copy bound), time, plain time, bound and library time; B2's are the pass
 entry's, with ``calls_ms``/``calls_launches`` for the per-call form.
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 and the script exits non-zero. Without a CUDA device it exits non-zero
@@ -141,7 +162,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.launch.timing import cuda_ms, device_kernels, host_ms  # noqa: E402
+from repro_torch.launch.timing import cuda_ms, device_busy, device_kernels, host_ms  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_PER_S = 67e12  # float32 outside the tensor cores
@@ -759,6 +780,203 @@ def baselines(core, ps, dk, fa, g, pb, pr, spu_per_block, spu_packed, smi) -> No
     )
 
 
+def h2d_yardstick(dev) -> dict:
+    """GB/s of a 1 GiB host→device copy from page-locked and from pageable memory."""
+    n = 1 << 30
+    dst = torch.empty(n, dtype=torch.uint8, device=dev)
+    out = {}
+    for kind in ("pinned", "pageable"):
+        src = torch.ones(n, dtype=torch.uint8, pin_memory=kind == "pinned")
+        ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), reps=3)
+        out[f"{kind}_ms"] = ms
+        out[f"{kind}_gbps"] = n / ms / 1e6
+        del src
+    del dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_stream_bytes(core, hs, splan, tile_active=None) -> float:
+    """The closed form of one host sweep's B1 payload, counted from the layout."""
+    staged = hs._staged
+    packed = staged.packed_host(hs.packing)
+    rows_per_tile = np.bincount(staged.packed_run_index(hs.packing)["chunks"][:, 5],
+                                minlength=packed.num_tiles)
+    c = dict(ranges=0, runs=0, chunk_rows=0, touched=0, perm_edges=0)
+    tiles = 0
+    for lo in range(splan.pin_tiles, splan.num_tiles, splan.chunk_tiles):
+        hi = min(lo + splan.chunk_tiles, splan.num_tiles)
+        if tile_active is not None and not tile_active[lo:hi].any():
+            continue
+        tiles += hi - lo
+        c["ranges"] += 1
+        c["runs"] += int(packed.u[lo:hi].sum())
+        c["chunk_rows"] += int(rows_per_tile[lo:hi].sum())
+        c["touched"] += count_distinct(np.concatenate([packed.run_dst[t, : packed.u[t]] for t in range(lo, hi)]))
+        if hs.graph.src_sorted:
+            c["perm_edges"] += int(packed.e_valid[lo:hi].sum())
+    return core.iomodel.packed_kernel_h2d_bytes(
+        tiles, splan.tile_edges, weighted=hs.has_weights, **c
+    )
+
+
+def host_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, runs, ref, bfs, bfs_plans, roots,
+              tile_bytes, smi) -> tuple[int, dict]:
+    """Host residency at scale 22: B1 over streamed tile ranges, the plain scan and
+    the per-block path streamed, against the device-residency runs' bits."""
+    import dataclasses
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import session as session_mod
+
+    yard = h2d_yardstick(dev)
+    emit("h2d_yardstick", bytes=1 << 30, **yard, nvidia_smi=smi)
+    Be = sess.Be
+    budgets = {"A": budget, "B": 2 * g.n_pad * pr.attr_bytes + g.m * Be // 2}
+    t0 = time.perf_counter()
+    host = {k: core.GraphSession(g, device=None, residency="host", memory_budget=b, staged=sess._staged)
+            for k, b in budgets.items()}
+    devres_b = core.GraphSession(g, device=None, residency="device", memory_budget=budgets["B"],
+                                 staged=sess._staged)
+    for hs in host.values():  # stages each stream (pinned host payloads), warms
+        for strategy in ("spu", "dpu", "mpu"):
+            hs.run(core.ExecutionPlan(pr, strategy=strategy, max_iters=1, tol=0.0))
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    plans = {s: core.ExecutionPlan(pr, strategy=s, max_iters=10, tol=0.0) for s in ("spu", "dpu", "mpu")}
+    warm = {s: core.ExecutionPlan(pr, strategy=s, max_iters=1, tol=0.0) for s in plans}
+    want_b = {s: devres_b.run(p) for s, p in plans.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+
+    ps.launches = 0  # every count to 0 just before the host path
+    ps.pre_gathers = 0
+    dk.launches = 0
+    fa.launches = 0
+    out, peak_above = {}, {}
+    for name, hs in host.items():
+        want_runs = runs if name == "A" else want_b
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for strategy, plan in plans.items():
+            splan = hs.packed_stream_plan(strategy, pr.attr_bytes)
+            chunks = -(-(splan.num_tiles - splan.pin_tiles) // splan.chunk_tiles)
+            slabs = chunks + (splan.pin_tiles > 0)
+            before = ps.launches
+            hs.run(warm[strategy])  # a strategy change moves the pins: pin before timing
+            res, run_ms = ms_of(lambda: hs.run(plan))
+            launched = ps.launches - before
+            it = res.meters.iterations
+            check(it == 10, f"host {name} {strategy}: {it} sweeps")
+            check(np.array_equal(res.attrs.view(np.int32), ref.view(np.int32)),
+                  f"host {name} {strategy} PageRank != device residency bitwise")
+            check(res.meters.model_dict() == want_runs[strategy].meters.model_dict(),
+                  f"host {name} {strategy} model meters != device residency's")
+            per_sweep = kernel_stream_bytes(core, hs, splan)
+            check(res.meters.bytes_h2d == it * per_sweep,
+                  f"host {name} {strategy}: bytes_h2d {res.meters.bytes_h2d} != {it} x {per_sweep}")
+            check(launched == (it + 1) * slabs,
+                  f"host {name} {strategy}: {launched} launches for {it + 1} x {slabs} slabs")
+            ms = 1e3 * res.meters.wall_seconds / it
+            out[f"{name}_{strategy}"] = {
+                "pin_tiles": splan.pin_tiles, "chunk_tiles": splan.chunk_tiles, "chunks": chunks,
+                "launches_per_sweep": launched / (it + 1), "ms_per_sweep": ms, "run_ms": run_ms,
+                "bytes_h2d_per_sweep": per_sweep, "achieved_gbps": per_sweep / ms / 1e6,
+                "pinned_bound_ms": per_sweep / yard["pinned_gbps"] / 1e6,
+                "peak_device_graph_bytes": res.meters.peak_device_graph_bytes,
+            }
+        torch.cuda.synchronize()
+        peak_above[name] = torch.cuda.max_memory_allocated(dev) - base
+    pr_launches = ps.launches
+    check(peak_above["A"] < tile_bytes / 4 and peak_above["B"] < tile_bytes,
+          f"host runs took {peak_above} B of device memory above the baseline; the layout's tiles {tile_bytes}")
+
+    hs = host["A"]
+    # The 8-root BFS batch (selective) and one root alone, against the device runs.
+    before = ps.launches
+    hb = hs.run_batch(bfs_plans)
+    check(hb.fused and hb.iterations == bfs.iterations, "host BFS batch did not fuse or took other sweeps")
+    for a, b in zip(hb, bfs):
+        check(np.array_equal(a.attrs, b.attrs), "host BFS batch != device batch")
+    check(hb.meters.model_dict() == bfs.meters.model_dict(), "host BFS batch meters differ")
+    strategy = hs.compile(bfs_plans[0]).choice.strategy
+    splan = hs.packed_stream_plan(strategy, bfs_plans[0].program.attr_bytes)
+    want = sum(kernel_stream_bytes(core, hs, splan, None if r.all() else hs._packed_tile_activity(r))
+               for r in hb.activity_log)
+    check(hb.meters.bytes_h2d == want, f"host BFS batch bytes_h2d {hb.meters.bytes_h2d} != {want}")
+    full = kernel_stream_bytes(core, hs, splan)
+    one = hs.run(bfs_plans[3])
+    check(np.array_equal(one.attrs, bfs[3].attrs), "host BFS != the device batch's member")
+    want_one = sum(kernel_stream_bytes(core, hs, splan, None if r.all() else hs._packed_tile_activity(r))
+                   for r in one.activity_log)
+    check(one.meters.bytes_h2d == want_one and one.meters.bytes_h2d < one.iterations * full,
+          f"selective BFS bytes_h2d {one.meters.bytes_h2d}, closed form {want_one}, full {one.iterations * full}")
+    off = [dataclasses.replace(p, activity="off", max_iters=2) for p in bfs_plans]
+    k8, k1 = hs.run_batch(off), hs.run(off[0])
+    check(k8.meters.per_iteration().bytes_h2d == k1.meters.per_iteration().bytes_h2d == full,
+          "a K = 8 batch does not stream the edges once a sweep")
+    bfs_launches = ps.launches - before
+    # execution="packed": the JAX package's leaves, the plain tile sweep.
+    scan = core.GraphSession(g, device=None, residency="host", memory_budget=budget, execution="packed",
+                             staged=sess._staged)
+    plan2 = core.ExecutionPlan(pr, strategy="spu", max_iters=2, tol=0.0)
+    before = ps.launches
+    sc = scan.run(plan2)
+    check(ps.launches == before, "host execution='packed' launched B1")
+    dev2 = sess.run(plan2)
+    check(np.array_equal(sc.attrs.view(np.int32), dev2.attrs.view(np.int32)), "host packed != device bitwise")
+    splan = scan.packed_stream_plan("spu", pr.attr_bytes)
+    check(sc.meters.bytes_h2d == 2 * core.iomodel.packed_h2d_bytes(splan.num_tiles - splan.pin_tiles,
+                                                                   splan.tile_edges),
+          "host packed bytes_h2d != packed_h2d_bytes")
+    # The per-block path streamed, against device per-block.
+    hpb = core.GraphSession(g, device=None, residency="host", memory_budget=budget, execution="per_block",
+                            staged=pb._staged)
+    nbytes = {k: session_mod._host_block_nbytes(b) for k, b in pb.host_blocks.items()}
+    pb_out = {}
+    for strategy in ("spu", "dpu", "mpu"):
+        p3 = core.ExecutionPlan(pr, strategy=strategy, max_iters=3, tol=0.0)
+        hpb.run(warm[strategy])  # stages the page-locked blocks, pins the resident set
+        got, want = hpb.run(p3), pb.run(p3)
+        check(np.array_equal(got.attrs.view(np.int32), want.attrs.view(np.int32)),
+              f"host per_block {strategy} != device per_block bitwise")
+        check(got.meters.model_dict() == want.meters.model_dict(), f"host per_block {strategy} meters differ")
+        resident = hpb.compile(p3).resident
+        check(got.meters.bytes_h2d == 3 * core.iomodel.streamed_block_bytes(nbytes, resident),
+              f"host per_block {strategy} bytes_h2d != streamed_block_bytes")
+        pb_out[strategy] = {"ms_per_sweep": 1e3 * got.meters.wall_seconds / 3,
+                            "bytes_h2d_per_sweep": got.meters.bytes_h2d / 3}
+    # The drivers with a budget: auto residency is host.
+    alg.pagerank(g, iters=1, memory_budget=budget)  # stages the cached session's stream
+    before = ps.launches
+    drv = alg.pagerank(g, iters=10, memory_budget=budget)
+    check(core.get_session(g, memory_budget=budget).resolved_residency() == "host", "the driver ran at device residency")
+    check(np.array_equal(drv.attrs.view(np.int32), ref.view(np.int32)), "pagerank(g, memory_budget=) != the main path")
+    check(drv.meters.bytes_h2d > 0, "pagerank(g, memory_budget=) streamed nothing")
+    drv_launches = ps.launches - before
+    total = ps.launches  # just after
+    counts = {"packed_sweep": total, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    check(dk.launches == 0 and fa.launches == 0, f"the host path launched another kernel: {counts}")
+    busy = device_busy(lambda: host["A"].run(core.ExecutionPlan(pr, strategy="spu", max_iters=2, tol=0.0)))
+    emit(
+        "host_path", launches=counts, pre_gathers=ps.pre_gathers, budgets=budgets, staging_s=stage_s,
+        pagerank=out, pagerank_launches=pr_launches, peak_device_bytes_above_baseline=peak_above,
+        layout_device_tile_bytes=tile_bytes, device_busy_spu_a=busy,
+        bfs_k8={"sweeps": hb.iterations, "bytes_h2d": hb.meters.bytes_h2d,
+                "ms_per_sweep": 1e3 * hb.meters.wall_seconds / hb.iterations},
+        bfs_selective={"sweeps": one.iterations, "bytes_h2d": one.meters.bytes_h2d,
+                       "full_stream_bytes": one.iterations * full},
+        bfs_launches=bfs_launches, packed_ms_per_sweep=1e3 * sc.meters.wall_seconds / 2,
+        packed_bytes_h2d_per_sweep=sc.meters.bytes_h2d / 2, per_block=pb_out,
+        driver={"ms_per_sweep": 1e3 * drv.meters.wall_seconds / drv.iterations, "launches": drv_launches,
+                "bytes_h2d_per_sweep": drv.meters.bytes_h2d / drv.iterations},
+        pinned_gbps=yard["pinned_gbps"], nvidia_smi=smi,
+    )
+    a_spu = out["A_spu"]
+    return total, {"launches_per_sweep": a_spu["launches_per_sweep"], "ms_per_sweep": a_spu["ms_per_sweep"],
+                   "bound_ms": a_spu["pinned_bound_ms"], "bound_by": "bytes"}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -1354,6 +1572,9 @@ def main() -> None:
         stage_and_warm_s=t_stage_blocks, peak_device_bytes=torch.cuda.max_memory_allocated(dev),
     )
     baselines(core, ps, dk, fa, g, pb, pr, pb_runs["spu"].attrs, ref, smi)
+    tile_bytes = sum(t.numel() * t.element_size() for t in tiles.values() if torch.is_tensor(t))
+    host_launches, host_b1 = host_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, runs, ref, bfs,
+                                       bfs_plans, roots, tile_bytes, smi)
 
     # -- phase 7: one PageRank sweep from the sub-shard kernel -----------------
     # Twice: through the pass entry (one launch per phase for all sub-shards)
@@ -1510,9 +1731,11 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/packed_sweep.cu",
         "replaces": "src/repro/kernels/packed_sweep.py:86",
-        "launches": main_launches + driver_launches + ws_launches,
+        "launches": main_launches + driver_launches + ws_launches + host_launches,
         "launches_by_path": {"main_path": main_launches, "packed_scan_path": 0,
-                             "drivers": driver_launches, "wcc_scc": ws_launches},
+                             "drivers": driver_launches, "wcc_scc": ws_launches,
+                             "host_path": host_launches},
+        "host_path": host_b1,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

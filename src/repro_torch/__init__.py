@@ -8,7 +8,9 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card, ``device=None`` raises. On the CPU each
 kernel's plain PyTorch version runs in its place.
 
-Ported so far, at device residency: the packed path — ``GraphSession.run``
+Ported so far, at device and host residency (``residency="host"``, or a
+``memory_budget`` under ``"auto"``: the unpinned edge topology streams
+from page-locked host memory every sweep): the packed path — ``GraphSession.run``
 / ``run_batch`` → the tile-sweep kernel (``kernels/csrc/packed_sweep.cu``),
 or its plain version under ``execution="packed"`` — and the per-block path
 (``execution="per_block"``: the SPU/DPU/MPU schedules, the fused strategy

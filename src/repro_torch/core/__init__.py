@@ -1,7 +1,8 @@
 """NXgraph core, ported to PyTorch: layout, programs, I/O model, session.
 
 - :mod:`repro_torch.core.dsss` — Destination-Sorted Sub-Shard layout and tile packing
-- :mod:`repro_torch.core.session` — GraphSession at device residency, the session cache
+- :mod:`repro_torch.core.session` — GraphSession at device and host residency, the session cache
+- :mod:`repro_torch.core.streaming` — host→device payloads and the copy ring of host residency
 - :mod:`repro_torch.core.plan` — ExecutionPlan
 - :mod:`repro_torch.core.engine` — the NXGraphEngine shim over Session/Plan
 - :mod:`repro_torch.core.algorithms` — PageRank/BFS/WCC/SSSP/SCC drivers (§IV),

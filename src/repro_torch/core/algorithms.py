@@ -9,8 +9,12 @@ the same graph object re-use the staged state. ``multi_bfs`` and
 propagation, backward reachability): its repeated runs over two staged
 sessions are the "stage once, run many" pattern the session exists for.
 
-Every driver runs on the CUDA card unless ``device="cpu"`` is passed.
-Routing K sources through a graph server (``server=``) is not ported yet.
+Every driver runs on the CUDA card unless ``device="cpu"`` is passed. A
+``memory_budget`` under the default ``residency="auto"`` means host
+residency: the budget is enforced and the edge topology it does not pin
+streams from host memory every sweep (``residency="device"`` keeps the
+budget a modelled one). Routing K sources through a graph server
+(``server=``) is not ported yet.
 """
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ __all__ = ["NXGraphEngine", "Meters", "Result"]
 
 
 def _tier(session: GraphSession, residency: str) -> str:
-    """The tier a residency names for this session ("auto" resolved), ported or not."""
+    """The tier a residency names for this session ("auto" resolved; "disk" is not ported)."""
     if residency == "auto":
         return "host" if session.memory_budget is not None else "device"
     return residency
@@ -40,9 +40,9 @@ class NXGraphEngine:
         custom strategy. "auto" applies the paper's adaptive selection from
         ``memory_budget``.
       memory_budget: bytes of fast-tier memory (B_M). ``None`` = unlimited.
-      residency: "device" | "auto" (see :class:`GraphSession`; ``"auto"``
-        with a budget means host residency, which is not ported yet).
-        ``None`` is "auto".
+      residency: "device" | "host" | "auto" (see :class:`GraphSession`;
+        ``"auto"`` with a budget means host residency, which streams the
+        unpinned edge topology every sweep). ``None`` is "auto".
       execution: "per_block" | "packed" | "packed_kernel" | "auto", a
         per-plan override (see :class:`GraphSession`). ``None`` inherits
         the session's.

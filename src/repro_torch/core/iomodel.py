@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 __all__ = [
     "IOParams",
     "spu_io",
@@ -18,6 +20,13 @@ __all__ = [
     "StrategyChoice",
     "modelled_io",
     "turbograph_like_io",
+    "PACKED_SLOT_BYTES",
+    "KERNEL_SLOT_BYTES",
+    "packed_h2d_bytes",
+    "packed_kernel_h2d_bytes",
+    "selective_streamed_tiles",
+    "streamed_block_bytes",
+    "selective_edge_bytes",
 ]
 
 
@@ -114,3 +123,106 @@ def select_strategy(p: IOParams, B_M: int | None) -> StrategyChoice:
     Q = mpu_q(p, B_M)
     r, w = mpu_io(p, B_M)
     return StrategyChoice("dpu" if Q == 0 else "mpu", Q, r, w)
+
+
+# Raw bytes per tile edge slot the packed host-streaming path ships under
+# execution="packed": four int32 leaves (src, dst, run_local, run_dst),
+# plus float32 weights on weighted graphs and one int32 e_valid per tile.
+PACKED_SLOT_BYTES = 16
+
+# Raw bytes per tile edge slot of kernel B1's streamed payload under
+# execution="packed_kernel": src and dst (int32), plus float32 weights on
+# weighted graphs. run_local, run_dst and e_valid stay on the host.
+KERNEL_SLOT_BYTES = 8
+
+
+def packed_h2d_bytes(
+    streamed_tiles: int, tile_edges: int, *, weighted: bool = False
+) -> float:
+    """Closed-form raw host→device bytes per sweep of packed streaming.
+
+    Every streamed tile ships its dense leaves once a sweep:
+    ``streamed_tiles · (tile_edges · slot_bytes + 4)``, so the adaptive
+    packer's padding is also the physical transfer's padding.
+    """
+    per_tile = tile_edges * (PACKED_SLOT_BYTES + (4 if weighted else 0)) + 4
+    return float(streamed_tiles * per_tile)
+
+
+def packed_kernel_h2d_bytes(
+    streamed_tiles: int,
+    tile_edges: int,
+    *,
+    ranges: int,
+    runs: int,
+    chunk_rows: int,
+    touched: int,
+    perm_edges: int = 0,
+    weighted: bool = False,
+) -> float:
+    """Closed-form raw host→device bytes per sweep of kernel B1's stream.
+
+    What the kernel reads of ``ranges`` streamed tile ranges holding
+    ``streamed_tiles`` tiles: the padded ``src``/``dst`` (and weights)
+    slots, and each range's index — its chunk-table rows (32 B each), one
+    run start and one fold-list entry per run (8 B), each touched
+    destination's id and CSR offset (8 B, plus one closing offset a
+    range), and on ``src_sorted`` layouts the edge permutation (4 B per
+    real edge). The counts are sums over the streamed ranges.
+    """
+    slot = KERNEL_SLOT_BYTES + (4 if weighted else 0)
+    return float(
+        streamed_tiles * tile_edges * slot
+        + 32 * chunk_rows + 8 * runs + 8 * touched + 4 * ranges + 4 * perm_edges
+    )
+
+
+def selective_streamed_tiles(tile_active, pin_tiles: int, chunk_tiles: int) -> int:
+    """Streamed tile count of one frontier-aware packed sweep.
+
+    The stream walks the chunk grid ``[lo, lo + chunk_tiles)`` for ``lo`` in
+    ``range(pin_tiles, num_tiles, chunk_tiles)`` and skips every chunk that
+    holds no active tile; chunks go whole, so the count is the sum of the
+    active chunks' sizes.
+    """
+    act = np.asarray(tile_active, dtype=bool)
+    nt = int(act.shape[0])
+    streamed = 0
+    for lo in range(pin_tiles, nt, chunk_tiles):
+        hi = min(lo + chunk_tiles, nt)
+        if act[lo:hi].any():
+            streamed += hi - lo
+    return streamed
+
+
+def streamed_block_bytes(block_nbytes, resident, active_rows=None) -> float:
+    """Closed-form per-sweep ``bytes_h2d`` of the per-block host stream.
+
+    ``block_nbytes`` maps sub-shard ``(i, j)`` to the raw bytes of its
+    padded host block; a sweep ships every processed block outside the
+    ``resident`` set once. ``active_rows`` (a (P,) bitmap) restricts the
+    sweep to the active source intervals; ``None`` is a full sweep.
+    """
+    return float(
+        sum(
+            b
+            for k, b in block_nbytes.items()
+            if k not in resident and (active_rows is None or active_rows[k[0]])
+        )
+    )
+
+
+def selective_edge_bytes(block_edges, resident, active_rows, Be) -> float:
+    """Modelled edge-byte charge (``Be`` per edge) of one selective sweep.
+
+    ``block_edges`` maps sub-shard ``(i, j)`` to its real edge count; every
+    processed block outside ``resident`` is charged. With ``active_rows``
+    all True it is the full sweep's ``m·Be`` less the resident set.
+    """
+    return float(
+        sum(
+            e * Be
+            for k, e in block_edges.items()
+            if k not in resident and (active_rows is None or active_rows[k[0]])
+        )
+    )

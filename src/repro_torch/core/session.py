@@ -1,10 +1,23 @@
 """GraphSession — stage the graph once, run many plans (port of ``repro.core.session``).
 
-The device-residency slice of the JAX package's session. A
-:class:`GraphSession` stages its graph on its device once and executes any
-number of :class:`repro_torch.core.plan.ExecutionPlan` jobs against it;
-``run_batch`` fuses K compatible plans into one sweep sequence whose
-tensors carry a leading ``(K,)`` query axis.
+A :class:`GraphSession` stages its graph once and executes any number of
+:class:`repro_torch.core.plan.ExecutionPlan` jobs against it; ``run_batch``
+fuses K compatible plans into one sweep sequence whose tensors carry a
+leading ``(K,)`` query axis.
+
+Two residencies, the ``residency`` axis:
+
+* ``"device"``: what a run needs is uploaded to the card once, and the
+  memory budget only shapes the modelled meters.
+* ``"host"`` (and ``"auto"`` with a ``memory_budget``): the budget is
+  enforced. The edge topology it pins goes to the card once; the rest
+  stays in page-locked host memory and is copied host→device every sweep,
+  in the sweep's order, two units in flight (:mod:`repro_torch.core.
+  streaming`), each copy charged to ``Meters.bytes_h2d``. The packed
+  paths stream tile chunks (:meth:`GraphSession.packed_stream_plan`,
+  :func:`_packed_host_sweep`), the per-block path sub-shard blocks
+  (:class:`_BlockFetcher`). Results and model meters equal device
+  residency's bit for bit.
 
 Three execution paths, the ``execution`` axis:
 
@@ -26,8 +39,8 @@ Three execution paths, the ``execution`` axis:
 * ``"per_block"``: the paper's own schedules, one sub-shard at a time —
   SPU (Algorithm 5, :func:`_iteration_spu`), DPU and MPU (Algorithms 6
   and 7, :func:`_iteration_two_phase`) with their hubs — over the padded
-  "shard files" (:meth:`DSSSGraph.host_blocks`), uploaded once and handed
-  out by :class:`_BlockFetcher`, which charges the edge bytes. The
+  "shard files" (:meth:`DSSSGraph.host_blocks`), handed out by
+  :class:`_BlockFetcher`, which charges the edge bytes. The
   ``"fused"`` strategy (:func:`_iteration_fused`, one whole-graph
   gather-reduce per sweep) always runs here. The block primitives are
   plain PyTorch: float sums are left folds in edge order
@@ -45,8 +58,10 @@ in through :meth:`GraphSession.register_strategy` and run per-block.
 (the drivers of :mod:`repro_torch.core.algorithms` share it).
 
 Not ported yet, and refused with :class:`NotImplementedError` naming the
-ROADMAP item: host and disk residency (and a session's
-``host_memory_budget``).
+ROADMAP item: disk residency and a session's ``host_memory_budget`` (A9).
+Observability counters and the transient-fault retries of the JAX
+package's copies belong to A10 and are not here: a failed copy or launch
+raises.
 """
 from __future__ import annotations
 
@@ -59,6 +74,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core import streaming
 from repro_torch.core.dsss import DSSSGraph, active_tile_mask, tile_source_spans
 from repro_torch.core.identities import reduce_identity, segment_fill_value
 from repro_torch.core.iomodel import (
@@ -72,10 +88,14 @@ from repro_torch.core.vertex_programs import VertexProgram
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import prepare_from_host_block
 from repro_torch.kernels.packed_sweep import (
+    RangeSweep,
     _edge_aux,
     packed_sweep_update,
     packed_sweep_update_ref,
     prepare_packed_tiles,
+    run_index,
+    tile_ranges,
+    write_range,
 )
 
 __all__ = [
@@ -85,6 +105,7 @@ __all__ = [
     "Result",
     "BatchResult",
     "CompiledPlan",
+    "PackedStreamPlan",
     "IdentityLRU",
     "get_session",
     "clear_session_cache",
@@ -105,7 +126,6 @@ MODEL_METER_FIELDS = (
 )
 
 _NOT_PORTED = {
-    "host": "residency='host' is not ported yet (ROADMAP A8)",
     "disk": "residency='disk' is not ported yet (ROADMAP A9)",
     "host_memory_budget": "host_memory_budget (the disk tier's host RAM "
     "bound) is not ported yet (ROADMAP A9)",
@@ -117,7 +137,10 @@ class Meters:
     """Slow-tier byte counters (paper Table II, model units) + scheduling stats.
 
     ``peak_device_graph_bytes`` is the device-held edge topology in model
-    units: at device residency, the whole graph.
+    units: at device residency, the whole graph; at host residency, the
+    pinned set plus the units in flight. ``bytes_h2d`` is physical: the raw
+    bytes of every host→device copy of edge topology, charged where the
+    copy is queued (0 at device residency).
     """
 
     bytes_read_edges: float = 0.0
@@ -125,6 +148,7 @@ class Meters:
     bytes_read_hubs: float = 0.0
     bytes_written_hubs: float = 0.0
     bytes_written_intervals: float = 0.0
+    bytes_h2d: float = 0.0
     peak_device_graph_bytes: float = 0.0
     iterations: int = 0
     blocks_processed: int = 0
@@ -152,13 +176,14 @@ class Meters:
         """The byte fields divided by ``max(iterations, 1)``; the rest as is."""
         k = max(self.iterations, 1)
         out = dataclasses.replace(self)
-        # bytes_h2d and bytes_disk_read join this list with ROADMAP A7/A9.
+        # bytes_disk_read joins this list with ROADMAP A9.
         for f in (
             "bytes_read_edges",
             "bytes_read_intervals",
             "bytes_read_hubs",
             "bytes_written_hubs",
             "bytes_written_intervals",
+            "bytes_h2d",
         ):
             setattr(out, f, getattr(self, f) / k)
         return out
@@ -219,7 +244,8 @@ class CompiledPlan:
     """A plan resolved against one session: strategy, resident set, modes.
 
     ``resident`` is the set of sub-shards the memory budget pins in the
-    fast tier; at device residency it drives the modelled meters only.
+    fast tier; at device residency it drives the modelled meters only, at
+    host residency the per-block path pins exactly these blocks.
     """
 
     params: IOParams
@@ -229,6 +255,28 @@ class CompiledPlan:
     execution: str = "packed_kernel"
     # "selective" iff the program is monotone and activity != "off".
     activity: str = "off"
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedStreamPlan:
+    """How the packed paths place tiles under host residency.
+
+    ``pin_tiles`` leading tiles stay on the card (SPU pins what the budget
+    leaves after both attribute copies; DPU/MPU pin nothing, since their
+    model streams every edge); the other tiles go up every sweep in chunks
+    of ``chunk_tiles``, two in flight, so the device topology peaks at the
+    pinned prefix plus two chunks (``max_chunk_model_bytes`` each).
+    ``host_tiles`` is the disk tier's RAM-cached level (ROADMAP A9), 0
+    here. Field for field the JAX package's plan for the same session.
+    """
+
+    pin_tiles: int
+    chunk_tiles: int
+    num_tiles: int
+    tile_edges: int
+    pin_model_bytes: float  # real-edge model bytes of the pinned prefix
+    max_chunk_model_bytes: float  # largest streamed chunk, model units
+    host_tiles: int = 0
 
 
 @dataclasses.dataclass
@@ -247,6 +295,7 @@ class _RunContext:
     activity: str = "off"
     aux_batched: bool = False
     execution: str = "packed_kernel"
+    residency: str = "device"
 
     @property
     def block_keys(self) -> frozenset:
@@ -762,13 +811,92 @@ def _sweep_tile_slab(ctx: _RunContext, attrs_flat, acc, tiles, row_active, windo
     )
 
 
+def _packed_host_sweep(ctx: _RunContext, attrs_flat, acc, row_active, meters: Meters, tile_active):
+    """The tile sweep at host residency: a pinned prefix, then streamed chunks.
+
+    The session's :class:`PackedStreamPlan` pins a leading tile prefix on
+    the card (:meth:`GraphSession._ensure_packed_pins`), swept first; the
+    other tiles are cut into its chunks, copied host→device through the
+    session's :class:`~repro_torch.core.streaming.CopyRing` (chunk c+1's
+    copy runs while chunk c computes) and swept in ascending order, which
+    is the device sweep's fold order, so the bits are device residency's.
+    Each streamed chunk charges its raw bytes to ``bytes_h2d`` and its
+    real-edge model bytes to the peak (the prefix plus at most two chunks).
+    Under selective execution a chunk with no active tile is not copied
+    and not charged, and the prefix runs restricted to its active tiles;
+    a streamed chunk runs whole (its inactive tiles fold identities).
+
+    ``"packed_kernel"`` ships what kernel B1 reads (tile ranges of
+    :func:`repro_torch.kernels.packed_sweep.tile_ranges`: ``src``, ``dst``,
+    weights, and each range's run and fold index) and runs
+    ``pre_gather`` once and one range launch per slab
+    (:class:`~repro_torch.kernels.packed_sweep.RangeSweep`); ``"packed"``
+    ships the JAX package's tile leaves and runs the plain tile sweep on
+    each chunk, carrying the accumulator.
+    """
+    sess, prog = ctx.session, ctx.program
+    dev = sess.device
+    splan = sess.packed_stream_plan(ctx.choice.strategy, ctx.params.Ba)
+    form = "leaves" if ctx.execution == "packed" else "kernel"
+    pins, pin_model = sess._ensure_packed_pins(splan.pin_tiles, form)
+    meters.peak_device_graph_bytes = max(meters.peak_device_graph_bytes, pin_model)
+    stream, starts = None, []
+    if splan.pin_tiles < splan.num_tiles:
+        stream = sess._staged.packed_stream(
+            sess.packing, splan.pin_tiles, splan.chunk_tiles, form, dev.type == "cuda"
+        )
+        starts = [
+            c for c, (lo, hi) in enumerate(stream.bounds)
+            if tile_active is None or tile_active[lo:hi].any()
+        ]
+    window = None if tile_active is None else tile_active[: splan.pin_tiles]
+    ranges = None
+    if form == "kernel":
+        max_runs = max(pins[1].runs if pins is not None else 0, stream.max_runs if stream else 0)
+        ranges = RangeSweep(
+            prog, attrs_flat, ctx.aux, row_active, sess.has_weights, ctx.aux_batched, max_runs
+        )
+    if pins is not None:
+        if form == "leaves":
+            acc = _sweep_tile_slab(ctx, attrs_flat, acc, pins, row_active, window)
+        elif window is None or window.all():
+            ranges.update(acc, *pins)
+        elif window.any():
+            ranges.update(acc, *pins, torch.from_numpy(window.astype(np.uint8)).to(dev))
+    if not starts:
+        return acc
+    ring = sess._copy_ring(form, stream.max_nbytes)
+    ring.begin()
+    ring.put(0, stream.host[starts[0]])
+    Be = sess.Be
+    for n, c in enumerate(starts):
+        if n + 1 < len(starts):
+            ring.put(n + 1, stream.host[starts[n + 1]])
+        meters.bytes_h2d += stream.nbytes[c]
+        live = pin_model + stream.edges[c] * Be
+        if n + 1 < len(starts):
+            live += stream.edges[starts[n + 1]] * Be
+        meters.peak_device_graph_bytes = max(meters.peak_device_graph_bytes, float(live))
+        buf = ring.take(n)
+        if form == "kernel":
+            ranges.update(acc, buf, stream.units[c])
+        else:
+            acc = packed_sweep_update_ref(
+                prog, attrs_flat, acc, ctx.aux, streaming.typed_views(buf, stream.units[c]),
+                row_active, sess.has_weights, ctx.aux_batched,
+            )
+        ring.release(n)
+    return acc
+
+
 def _iteration_packed(ctx: _RunContext, attrs, active, meters: Meters):
     """One update sweep for any of SPU/DPU/MPU, ``"packed"`` or ``"packed_kernel"``.
 
     Meters from metadata → pre-iteration globals → accumulator init → tile
-    sweep (compacted to the active tiles under selective execution) →
-    batched apply. Returns the new ``(K, P, isz)`` attrs and the ``(K, P)``
-    numpy map of changed intervals.
+    sweep (compacted to the active tiles under selective execution; at
+    host residency, :func:`_packed_host_sweep`) → batched apply. Returns
+    the new ``(K, P, isz)`` attrs and the ``(K, P)`` numpy map of changed
+    intervals.
     """
     sess, prog = ctx.session, ctx.program
     g = sess.graph
@@ -790,8 +918,11 @@ def _iteration_packed(ctx: _RunContext, attrs, active, meters: Meters):
     row_active = torch.from_numpy(row_mask).to(sess.device)
     selective = ctx.activity == "selective" and not row_mask.all()
     tile_active = sess._packed_tile_activity(row_mask) if selective else None
-    tiles = sess._staged.packed_tiles(sess.packing, sess.device)
-    acc = _sweep_tile_slab(ctx, attrs_flat, acc, tiles, row_active, tile_active)
+    if ctx.residency == "host":
+        acc = _packed_host_sweep(ctx, attrs_flat, acc, row_active, meters, tile_active)
+    else:
+        tiles = sess._staged.packed_tiles(sess.packing, sess.device)
+        acc = _sweep_tile_slab(ctx, attrs_flat, acc, tiles, row_active, tile_active)
     new, changed = _apply_all_impl(
         prog, attrs, acc.reshape(K, g.P, g.interval_size), ctx.aux, globals_,
         ctx.valid, ctx.tol, aux_batched=ctx.aux_batched,
@@ -866,14 +997,89 @@ def _device_block(host: dict, device: torch.device) -> dict:
     }
 
 
+def _block_on_device(views: dict, e: int, u: int, grouped: bool) -> dict:
+    """The per-block path's block from an uploaded padded block (``views``).
+
+    What :func:`_device_block` does on the host, done on the block's
+    device: trim to the ``e`` real edges and ``u`` hub slots, widen the
+    indices to int64, count each hub slot's edges (an integer scatter-add,
+    exact in any order) and, where the edges are not grouped by slot, sort
+    them stably by slot. ``grouped`` is the host's per-block flag, known
+    once per staged graph.
+    """
+    hub_inv = views["hub_inv"][:e].long()
+    w = views.get("weights")
+    return {
+        "src_local": views["src_local"][:e].long(),
+        "dst_local": views["dst_local"][:e].long(),
+        "hub_inv": hub_inv,
+        "hub_dst": views["hub_dst"][:u].long(),
+        "seg_lengths": torch.zeros(u, dtype=torch.long, device=hub_inv.device).scatter_add_(
+            0, hub_inv, torch.ones_like(hub_inv)
+        ),
+        "seg_order": None if grouped else torch.argsort(hub_inv, stable=True),
+        "e": e,
+        "u": u,
+        "weights": None if w is None else w[:e],
+    }
+
+
 def _host_block_nbytes(host: dict) -> int:
-    """Raw bytes of one padded host block's arrays."""
+    """Raw bytes of one padded host block's arrays (what a streamed fetch ships)."""
     total = 0
     for name in ("src_local", "dst_local", "hub_inv", "hub_dst", "weights"):
         arr = host.get(name)
         if arr is not None:
             total += arr.nbytes
     return total
+
+
+# The arrays of a padded host block that a streamed fetch ships, in order.
+_BLOCK_ARRAYS = ("src_local", "dst_local", "hub_inv", "hub_dst", "weights")
+
+
+@dataclasses.dataclass
+class _BlockPayload:
+    """One padded host block as a byte payload: one copy host→device."""
+
+    buf: torch.Tensor  # uint8, page-locked on a CUDA session
+    sections: dict  # streaming.layout of _BLOCK_ARRAYS
+    nbytes: int  # _host_block_nbytes of the block
+    e: int
+    u: int
+    grouped: bool  # edges already grouped by hub slot
+
+
+@dataclasses.dataclass
+class _PackedStream:
+    """The streamed tiles of one packed stream plan, staged in host memory once.
+
+    One unit per chunk of the plan's grid (``bounds``), each a byte payload
+    in one host buffer, page-locked on a CUDA session: a
+    :class:`~repro_torch.kernels.packed_sweep.TileRange` (form
+    ``"kernel"``) or the JAX package's tile leaves (form ``"leaves"``,
+    ``units`` their :func:`~repro_torch.core.streaming.layout`).
+    """
+
+    bounds: list  # (lo, hi) tiles per chunk
+    units: list
+    nbytes: list  # raw bytes per chunk
+    edges: list  # real edges per chunk
+    host: list  # per chunk, its uint8 view of the host buffer
+    max_nbytes: int
+    max_runs: int
+
+
+def _packed_leaves(packed, lo: int, hi: int) -> dict:
+    """The JAX package's streamed leaves of tiles [lo, hi) (``_packed_host_chunk``)."""
+    return {
+        "src": packed.src[lo:hi],
+        "dst": packed.dst[lo:hi],
+        "run_local": packed.run_local[lo:hi],
+        "run_dst": packed.run_dst[lo:hi],
+        "e_valid": packed.e_valid[lo:hi],
+        "weights": None if packed.weights is None else packed.weights[lo:hi],
+    }
 
 
 class _StagedGraph:
@@ -884,7 +1090,10 @@ class _StagedGraph:
     only runs packed sweeps never pays for them; per device, their upload
     (:meth:`device_blocks`), the fused path's edge arrays and the staged
     kernel operands; and, per packing mode, the host :class:`PackedSweep`,
-    its per-tile source spans and its device tiles.
+    its per-tile source spans, its kernel run index and its device tiles.
+    For host residency, in host memory: the blocks as byte payloads
+    (:meth:`block_payloads`) and each stream plan's chunks
+    (:meth:`packed_stream`), page-locked for a CUDA session.
     """
 
     def __init__(self, graph: DSSSGraph):
@@ -899,6 +1108,10 @@ class _StagedGraph:
         self._packed_host: dict[str, Any] = {}
         self._packed_tiles: dict[tuple[str, torch.device], dict] = {}
         self._packed_spans: dict[str, tuple] = {}
+        self._packed_index: dict[str, dict] = {}
+        self._packed_streams: dict[tuple, _PackedStream] = {}
+        self._packed_prefixes: dict[tuple, tuple] = {}
+        self._block_payloads: dict[bool, dict] = {}
         self.fused: dict[torch.device, dict] = {}
         self.kernel_operands: dict[tuple, tuple] = {}
 
@@ -933,7 +1146,8 @@ class _StagedGraph:
         if tiles is None:
             packed = self.packed_host(mode)
             tiles = prepare_packed_tiles(
-                packed, has_weights=packed.weights is not None, device=device
+                packed, has_weights=packed.weights is not None, device=device,
+                index=self.packed_run_index(mode),
             )
             self._packed_tiles[(mode, device)] = tiles
         return tiles
@@ -946,48 +1160,196 @@ class _StagedGraph:
             self._packed_spans[mode] = spans
         return spans
 
+    def packed_run_index(self, mode: str) -> dict:
+        """Kernel B1's host run index of one layout, computed once."""
+        index = self._packed_index.get(mode)
+        if index is None:
+            index = self._packed_index[mode] = run_index(self.packed_host(mode))
+        return index
+
+    def _stage_units(self, mode: str, bounds: list, form: str, pin_memory: bool, run_tile=False):
+        """Tile ranges ``bounds`` as back-to-back payloads of one host buffer.
+
+        Returns ``(buffer, units, sizes, offsets)``: per range a
+        :class:`~repro_torch.kernels.packed_sweep.TileRange` (form
+        ``"kernel"``, with ``run_tile`` if asked) or the layout of the JAX
+        package's tile leaves (form ``"leaves"``).
+        """
+        packed = self.packed_host(mode)
+        if form == "kernel":
+            items = tile_ranges(packed, bounds, index=self.packed_run_index(mode), run_tile=run_tile)
+            sizes = [unit.nbytes for unit, _ in items]
+            write = write_range
+        else:
+            items, sizes = [], []
+            for lo, hi in bounds:
+                arrays = _packed_leaves(packed, lo, hi)
+                sections, nbytes = streaming.layout(arrays)
+                items.append((sections, arrays))
+                sizes.append(nbytes)
+            write = streaming.fill
+        offsets = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)]).tolist()
+        buf = streaming.host_buffer(offsets[-1], pin_memory)
+        view = buf.numpy()
+        for (unit, arrays), off, n in zip(items, offsets, sizes):
+            write(view[off:off + n], unit, arrays)
+        return buf, [unit for unit, _ in items], sizes, offsets
+
+    def packed_stream(
+        self, mode: str, pin_tiles: int, chunk_tiles: int, form: str, pin_memory: bool
+    ) -> _PackedStream:
+        """The tiles past ``pin_tiles``, cut every ``chunk_tiles``, staged once per form."""
+        key = (mode, pin_tiles, chunk_tiles, form, pin_memory)
+        stream = self._packed_streams.get(key)
+        if stream is None:
+            packed = self.packed_host(mode)
+            nt = packed.num_tiles
+            bounds = [(lo, min(lo + chunk_tiles, nt)) for lo in range(pin_tiles, nt, chunk_tiles)]
+            buf, units, sizes, offsets = self._stage_units(mode, bounds, form, pin_memory)
+            stream = self._packed_streams[key] = _PackedStream(
+                bounds=bounds,
+                units=units,
+                nbytes=sizes,
+                edges=[int(packed.e_valid[lo:hi].sum()) for lo, hi in bounds],
+                host=[buf[off:off + n] for off, n in zip(offsets, sizes)],
+                max_nbytes=max(sizes, default=0),
+                max_runs=max((u.runs for u in units), default=0) if form == "kernel" else 0,
+            )
+        return stream
+
+    def packed_prefix(self, mode: str, pin_tiles: int, form: str, pin_memory: bool) -> tuple:
+        """The leading ``pin_tiles`` tiles as one host payload, built once per form.
+
+        ``(buffer, unit, nbytes)``; the ``"kernel"`` form's range carries
+        ``run_tile``, so a selective sweep can restrict the prefix to its
+        active tiles.
+        """
+        key = (mode, pin_tiles, form, pin_memory)
+        prefix = self._packed_prefixes.get(key)
+        if prefix is None:
+            buf, (unit,), (nbytes,), _ = self._stage_units(
+                mode, [(0, pin_tiles)], form, pin_memory, run_tile=True
+            )
+            prefix = self._packed_prefixes[key] = (buf, unit, nbytes)
+        return prefix
+
+    def block_payloads(self, pin_memory: bool) -> dict:
+        """Every padded host block as a byte payload, built once per pinning."""
+        payloads = self._block_payloads.get(pin_memory)
+        if payloads is None:
+            payloads = {}
+            for key, host in self.host_blocks.items():
+                arrays = {name: host[name] for name in _BLOCK_ARRAYS}
+                sections, nbytes = streaming.layout(arrays)
+                buf = streaming.host_buffer(nbytes, pin_memory)
+                streaming.fill(buf.numpy(), sections, arrays)
+                e, u = host["e"], host["u"]
+                hub_inv = host["hub_inv"][:e]
+                payloads[key] = _BlockPayload(
+                    buf=buf, sections=sections, nbytes=nbytes, e=e, u=u,
+                    grouped=bool(np.all(hub_inv[1:] >= hub_inv[:-1])),
+                )
+            self._block_payloads[pin_memory] = payloads
+        return payloads
+
 
 class _BlockFetcher:
     """Per-run edge-block access layer: blocks in each sweep's declared order.
 
     Every per-block schedule obtains its sub-shard blocks through this
-    object, so edge bytes are charged where the data would move: at device
-    residency the blocks come from the staged device mirror, and a fetch of
-    a key outside the resident set charges ``e·Be`` model bytes (the
-    simulated slow tier). The whole topology is on the device, so the
-    high-water mark is reported once, up front. Host and disk streaming
-    (double-buffered H2D, mmap fetches) are not ported yet.
+    object, so edge bytes are charged where the data moves:
+
+    * ``residency="device"``: the blocks come from the staged device
+      mirror, and a fetch of a key outside the resident set charges
+      ``e·Be`` model bytes (the simulated slow tier). The whole topology is
+      on the device, so the high-water mark is reported once, up front.
+    * ``residency="host"``: only the resident set is on the device, pinned
+      once (:meth:`GraphSession._ensure_pinned`). Any other key is a real
+      copy of its padded host block, in the declared order, with the next
+      block's copy queued (on a stream of its own) before this block is
+      handed out; the block is then trimmed and indexed on the device
+      (:func:`_block_on_device`). The charge is the same ``e·Be``, and
+      ``bytes_h2d`` records the raw padded bytes shipped. The peak is the
+      pinned set plus the block in use and the one prefetched.
     """
 
-    def __init__(self, session: "GraphSession", compiled: CompiledPlan, meters: Meters):
-        if compiled.residency != "device":
-            raise NotImplementedError(
-                f"block streaming at residency={compiled.residency!r} is not "
-                "ported yet (ROADMAP A7-A9)"
-            )
+    def __init__(
+        self, session: "GraphSession", compiled: CompiledPlan, meters: Meters, pinned: dict
+    ):
         self._session = session
         self._resident = compiled.resident
+        self._host = compiled.residency == "host"
         self._meters = meters
+        self._pinned = pinned
+        self._ring: dict[tuple[int, int], tuple] = {}
         self._order: list[tuple[int, int]] = []
         self._pos = 0
         e_blk = session._staged.block_e
         self._model_bytes = {k: int(e_blk[k]) * session.Be for k in session.block_keys}
-        meters.peak_device_graph_bytes = max(
-            meters.peak_device_graph_bytes, float(sum(self._model_bytes.values()))
-        )
+        if self._host:
+            self._pinned_model = float(sum(self._model_bytes[k] for k in pinned))
+            meters.peak_device_graph_bytes = max(
+                meters.peak_device_graph_bytes, self._pinned_model
+            )
+        else:
+            meters.peak_device_graph_bytes = max(
+                meters.peak_device_graph_bytes, float(sum(self._model_bytes.values()))
+            )
 
     def begin(self, order: list[tuple[int, int]]) -> Callable[[], dict]:
-        """Declare this sweep's block order; returns the sequential fetch."""
+        """Declare this sweep's block order; returns the sequential fetch.
+
+        At host residency the first streamed block's copy is queued at once.
+        """
         self._order = order
         self._pos = 0
+        if self._host and order:
+            self._prefetch(order[0])
         return self._next
+
+    def _upload(self, key: tuple[int, int]) -> tuple:
+        """Queue one block's host→device copy and charge its raw bytes."""
+        sess = self._session
+        payload = sess._staged.block_payloads(sess.device.type == "cuda")[key]
+        buf, done = streaming.upload(payload.buf, sess.device, sess._copy_stream())
+        self._meters.bytes_h2d += payload.nbytes
+        return payload, buf, done
+
+    def _prefetch(self, key: tuple[int, int]) -> None:
+        if key in self._pinned or key in self._ring:
+            return
+        self._ring[key] = self._upload(key)
 
     def _next(self) -> dict:
         key = self._order[self._pos]
         self._pos += 1
-        if key not in self._resident:
-            self._meters.bytes_read_edges += self._model_bytes[key]
-        return self._session._staged.device_blocks(self._session.device)[key]
+        if not self._host:
+            if key not in self._resident:
+                self._meters.bytes_read_edges += self._model_bytes[key]
+            return self._session._staged.device_blocks(self._session.device)[key]
+        blk = self._pinned.get(key)
+        if blk is not None:
+            if self._pos < len(self._order):
+                self._prefetch(self._order[self._pos])
+            return blk
+        pending = self._ring.pop(key, None)
+        if pending is None:  # an access out of the declared order
+            pending = self._upload(key)
+        if self._pos < len(self._order):
+            self._prefetch(self._order[self._pos])
+        self._meters.bytes_read_edges += self._model_bytes[key]
+        live = (
+            self._pinned_model
+            + self._model_bytes[key]
+            + sum(self._model_bytes[k] for k in self._ring)
+        )
+        self._meters.peak_device_graph_bytes = max(self._meters.peak_device_graph_bytes, live)
+        payload, buf, done = pending
+        if done is not None:
+            torch.cuda.current_stream(self._session.device).wait_event(done)
+        return _block_on_device(
+            streaming.typed_views(buf, payload.sections), payload.e, payload.u, payload.grouped
+        )
 
 
 class GraphSession:
@@ -999,10 +1361,13 @@ class GraphSession:
         and raises when no CUDA device is present; pass ``"cpu"`` to run
         the plain versions of the kernels on the CPU.
       memory_budget: bytes of fast-tier memory (B_M); ``None`` = unlimited.
-        It sets the SPU/DPU/MPU choice and the modelled meters.
-      residency: ``"device"`` — what a run needs is uploaded once — or
+        It sets the SPU/DPU/MPU choice and the modelled meters, and at host
+        residency what stays on the device.
+      residency: ``"device"`` — what a run needs is uploaded once —,
+        ``"host"`` — the budget is enforced: the edge topology it does not
+        pin is copied from page-locked host memory every sweep — or
         ``"auto"``, which means ``"host"`` when a ``memory_budget`` is set
-        (not ported yet) and ``"device"`` otherwise.
+        and ``"device"`` otherwise. ``"disk"`` is not ported yet (A9).
       execution: ``"packed_kernel"`` (every sweep runs the tile-sweep
         kernel), ``"packed"`` (the same sweep with the kernel's plain
         version), ``"per_block"`` (the paper's schedules, one sub-shard at a
@@ -1029,7 +1394,7 @@ class GraphSession:
         Bv: int = 4,
         staged: "_StagedGraph | None" = None,
     ):
-        _check_axis("residency", residency, ("device", "auto"), ("host", "disk"))
+        _check_axis("residency", residency, ("device", "host", "auto"), ("disk",))
         _check_axis(
             "execution", execution, ("packed_kernel", "packed", "per_block", "auto"), ()
         )
@@ -1059,6 +1424,13 @@ class GraphSession:
         self._staged = staged if staged is not None else _StagedGraph(graph)
         self._residency: dict[int, frozenset] = {}  # Ba -> resident set
         self._compiled: dict[tuple, CompiledPlan] = {}
+        # Host residency: what the budget keeps on the device (one of the
+        # two at a time), the stream plans, and the copy machinery.
+        self._pinned: dict[tuple[int, int], dict] = {}
+        self._packed_pins: tuple | None = None  # (pin_tiles, form, pins, model, actual)
+        self._stream_plans: dict[tuple, PackedStreamPlan] = {}
+        self._rings: dict[str, streaming.CopyRing] = {}
+        self._stream = None
 
     @property
     def block_keys(self) -> frozenset:
@@ -1072,8 +1444,11 @@ class GraphSession:
 
     @property
     def blocks(self) -> dict[tuple[int, int], dict]:
-        """The per-block path's device blocks (uploaded once)."""
-        self.resolved_residency()
+        """The per-block path's blocks: on the device (uploaded once) at
+        device residency, the padded host blocks at host residency (the
+        device mirror would break the budget)."""
+        if self.resolved_residency() == "host":
+            return self._staged.host_blocks
         return self._staged.device_blocks(self.device)
 
     def staged_host_bytes(self) -> int:
@@ -1081,13 +1456,138 @@ class GraphSession:
         return int(sum(_host_block_nbytes(b) for b in self.host_blocks.values()))
 
     def resolved_residency(self, override: str | None = None) -> str:
-        """Resolve the residency axis; only ``"device"`` is ported."""
+        """Resolve the residency axis to ``"device"`` or ``"host"`` (disk: A9)."""
         mode = override or self.residency
         if mode == "auto":
             mode = "host" if self.memory_budget is not None else "device"
-        if mode != "device":
+        if mode not in ("device", "host"):
             raise NotImplementedError(_NOT_PORTED.get(mode, mode))
         return mode
+
+    def pinned_device_bytes(self) -> tuple[float, float]:
+        """(model, actual) bytes of the topology pinned on the device (host residency).
+
+        Per-block pins (the resident blocks) or the packed tile prefix; at
+        most one of the two is held. Model bytes are ``e·Be`` of the real
+        edges, in the budget's units; actual bytes are what was uploaded
+        (padded blocks, or the prefix's payload).
+        """
+        host = self._staged.host_blocks if self._pinned else {}
+        model = float(sum(int(self._staged.block_e[k]) * self.Be for k in self._pinned))
+        actual = float(sum(_host_block_nbytes(host[k]) for k in self._pinned))
+        if self._packed_pins is not None:
+            model += self._packed_pins[3]
+            actual += self._packed_pins[4]
+        return model, actual
+
+    def packed_stream_plan(self, strategy: str, Ba: int) -> PackedStreamPlan:
+        """Tile placement of the packed paths under host residency.
+
+        The budget's semantics at tile granularity: for SPU the budget left
+        after both attribute copies (``2·n_pad·Ba``) pins a prefix of the
+        tiles; DPU/MPU pin none. The rest streams in chunks of at most
+        ``min(256 KiB, budget/4)`` of tile data (never below one tile).
+        The JAX package's plan, field for field.
+        """
+        key = (strategy == "spu", Ba)
+        plan = self._stream_plans.get(key)
+        if plan is not None:
+            return plan
+        packed = self._staged.packed_host(self.packing)
+        nt, T = packed.num_tiles, packed.tile_edges
+        cum = np.cumsum(packed.e_valid.astype(np.int64)) * self.Be
+        if self.memory_budget is None:
+            pin = nt
+        elif strategy == "spu":
+            leftover = self.memory_budget - 2 * self.graph.n_pad * Ba
+            pin = int(np.searchsorted(cum, leftover, side="right"))
+        else:
+            pin = 0
+        pin_model = float(cum[pin - 1]) if pin else 0.0
+        tile_bytes = max(T * self.Be, 1)
+        target = 256 * 1024
+        if self.memory_budget is not None:
+            target = min(target, max(self.memory_budget // 4, tile_bytes))
+        chunk = max(1, min(int(target // tile_bytes), max(nt - pin, 1)))
+        max_chunk = 0.0
+        for lo in range(pin, nt, chunk):
+            hi = min(lo + chunk, nt)
+            max_chunk = max(max_chunk, float(cum[hi - 1]) - (float(cum[lo - 1]) if lo else 0.0))
+        plan = PackedStreamPlan(
+            pin_tiles=pin,
+            chunk_tiles=chunk,
+            num_tiles=nt,
+            tile_edges=T,
+            pin_model_bytes=pin_model,
+            max_chunk_model_bytes=max_chunk,
+        )
+        self._stream_plans[key] = plan
+        return plan
+
+    def _copy_stream(self):
+        """The stream host→device copies run on (``None`` off CUDA), made once."""
+        if self.device.type == "cuda" and self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def _copy_ring(self, form: str, nbytes: int) -> streaming.CopyRing:
+        """The two-slot ring of one stream form, grown when a chunk is larger."""
+        ring = self._rings.get(form)
+        if ring is None or ring.nbytes < nbytes:
+            ring = self._rings[form] = streaming.CopyRing(self.device, nbytes)
+        return ring
+
+    def _ensure_pinned(self, resident: frozenset) -> dict:
+        """Pin exactly the resident blocks on the device (per-block host runs).
+
+        Blocks leaving the resident set are released, so plans of other
+        strategies never keep device copies past the budget; the packed
+        prefix is released too (one pinning at a time). New blocks go up
+        once and are reused across runs.
+        """
+        self._packed_pins = None
+        for key in [k for k in self._pinned if k not in resident]:
+            del self._pinned[key]
+        todo = [k for k in sorted(resident) if k in self.block_keys and k not in self._pinned]
+        if todo:
+            payloads = self._staged.block_payloads(self.device.type == "cuda")
+            for key in todo:
+                p = payloads[key]
+                buf, done = streaming.upload(p.buf, self.device, self._copy_stream())
+                if done is not None:
+                    torch.cuda.current_stream(self.device).wait_event(done)
+                self._pinned[key] = _block_on_device(
+                    streaming.typed_views(buf, p.sections), p.e, p.u, p.grouped
+                )
+        return self._pinned
+
+    def _ensure_packed_pins(self, pin_tiles: int, form: str) -> tuple:
+        """Pin exactly the leading ``pin_tiles`` tiles on the device (packed host runs).
+
+        Returns ``(pins or None, model bytes)``: for the ``"kernel"`` form
+        the prefix as one tile range, ``(device payload, TileRange)`` with
+        its ``run_tile`` section (a selective sweep restricts it to its
+        active tiles); for ``"leaves"`` the JAX package's tile leaves as
+        device tensors. Another count or form releases the previous pins,
+        and the per-block pins as well.
+        """
+        self._pinned.clear()
+        held = self._packed_pins
+        if held is not None and held[0] == pin_tiles and held[1] == form:
+            return held[2], held[3]
+        self._packed_pins = None
+        if pin_tiles <= 0:
+            self._packed_pins = (0, form, None, 0.0, 0.0)
+            return None, 0.0
+        packed = self._staged.packed_host(self.packing)
+        host, unit, actual = self._staged.packed_prefix(
+            self.packing, pin_tiles, form, self.device.type == "cuda"
+        )
+        buf = host.to(self.device)
+        pins = (buf, unit) if form == "kernel" else streaming.typed_views(buf, unit)
+        model = float(packed.e_valid[:pin_tiles].astype(np.int64).sum()) * self.Be
+        self._packed_pins = (pin_tiles, form, pins, model, float(actual))
+        return pins, model
 
     def resolved_execution(self, strategy: str, override: str | None = None) -> str:
         """Resolve the execution axis: ``"packed_kernel"``, ``"packed"`` or ``"per_block"``.
@@ -1318,7 +1818,11 @@ class GraphSession:
         aux, aux_batched = _batch_aux(prog, g, kwargs_list)
         aux = {k: v.to(dev) for k, v in aux.items()}
         meters = Meters()
-        fetcher = _BlockFetcher(self, compiled, meters)
+        # Per-block host runs pin the resident set here; packed host runs pin
+        # a tile prefix inside the sweep. Device runs leave pins as they are.
+        host = compiled.residency == "host"
+        pinned = self._ensure_pinned(compiled.resident) if host and compiled.execution == "per_block" else {}
+        fetcher = _BlockFetcher(self, compiled, meters, pinned)
         if compiled.choice.strategy == "fused":
             # The fused path holds the whole edge list on the device.
             meters.peak_device_graph_bytes = max(
@@ -1339,6 +1843,7 @@ class GraphSession:
             activity=compiled.activity,
             aux_batched=aux_batched,
             execution=compiled.execution,
+            residency=compiled.residency,
         )
         if compiled.execution in ("packed", "packed_kernel"):
             iteration = _iteration_packed

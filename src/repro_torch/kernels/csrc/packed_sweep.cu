@@ -45,6 +45,24 @@
 //                 interval); a run's K partials are one row of the (R, K)
 //                 scratch. Runs of tiles the selection left out are skipped.
 //
+// Host residency streams the layout in tile ranges (repro_torch.core.session,
+// _packed_host_sweep), and the sweep is then split over entries of its own:
+//
+//   packed_sweep_pre_gather   pre_gather alone, once a sweep: y depends only
+//                             on attrs and aux, never on the range.
+//   packed_sweep_range_launch one tile range, self-contained: run_partials
+//                             over its chunk rows (rebased to the range), then
+//                             fold_touched, one thread per destination the
+//                             range touches, folding its runs in ascending
+//                             order into acc in place. A destination's runs in
+//                             range c all precede its runs in range c+1, so
+//                             folding the ranges in ascending order is
+//                             fold_runs' left fold, and the bits are device
+//                             residency's. A streamed sweep is one call per
+//                             range: a whole-n_pad fold_runs per range would
+//                             cost 68 us each at R-MAT scale 22, where ranges
+//                             are one tile and there are 998 of them.
+//
 // No run is ever cut into partials that are combined later: a float sum is a
 // left fold in edge order from segment_fill_value, exactly as in the plain
 // version. Float min/max fold in edge order too and follow the plain
@@ -226,6 +244,13 @@ struct Args {
   const unsigned char* row_active;
   const void* aux0;
   const void* aux1;
+  // The range path's fold list (nullptr and 0 on the whole-layout path):
+  // ND touched destinations fold_dst[i], each with its runs
+  // fold_runs[fold_ptr[i] .. fold_ptr[i + 1]) in ascending order.
+  int ND;
+  const int* fold_ptr;
+  const int* fold_dst;
+  const int* fold_runs;
 };
 
 __device__ __forceinline__ Aux aux_of(const Args& a, int k) {
@@ -475,19 +500,18 @@ __global__ void __launch_bounds__(kWarps * kLanes, KG == 1 ? kMinBlocks1 : kMinB
 // queries kFold at a time (a run's K partials are one row).
 constexpr int kFold = 8;
 
+// acc[k, d] folded with the runs runs[q0 .. q1) in order, for every query,
+// written to out[k, d] (acc and out may be one array: one thread owns d).
+// Runs of tiles the selection left out are skipped.
 template <class Op>
-__global__ void __launch_bounds__(kThreads) fold_runs(Args a) {
+__device__ __forceinline__ void fold_dest(const Args& a, int d, int q0, int q1, const int* runs,
+                                          const typename Op::T* acc, typename Op::T* out) {
   typedef typename Op::T T;
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= a.n_pad) return;
   const T* partial = static_cast<const T*>(a.partial);
-  const T* acc = static_cast<const T*>(a.acc);
-  T* out = static_cast<T*>(a.out);
-  const int q0 = a.dst_ptr[d], q1 = a.dst_ptr[d + 1];
   if (a.K == 1) {
     T v = acc[d];
     for (int q = q0; q < q1; ++q) {
-      const int r = a.dst_runs[q];
+      const int r = runs[q];
       if (a.tile_sel != nullptr && !a.tile_sel[a.run_tile[r]]) continue;
       v = combine<Op::kReduce>(v, partial[r]);
     }
@@ -502,7 +526,7 @@ __global__ void __launch_bounds__(kThreads) fold_runs(Args a) {
       if (kk < kn) v[kk] = acc[static_cast<size_t>(k0 + kk) * a.n_pad + d];
     }
     for (int q = q0; q < q1; ++q) {
-      const int r = a.dst_runs[q];
+      const int r = runs[q];
       if (a.tile_sel != nullptr && !a.tile_sel[a.run_tile[r]]) continue;
       const T* row = partial + static_cast<size_t>(r) * a.K + k0;
 #pragma unroll
@@ -515,6 +539,25 @@ __global__ void __launch_bounds__(kThreads) fold_runs(Args a) {
       if (kk < kn) out[static_cast<size_t>(k0 + kk) * a.n_pad + d] = v[kk];
     }
   }
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kThreads) fold_runs(Args a) {
+  typedef typename Op::T T;
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  if (d >= a.n_pad) return;
+  fold_dest<Op>(a, d, a.dst_ptr[d], a.dst_ptr[d + 1], a.dst_runs, static_cast<const T*>(a.acc),
+                static_cast<T*>(a.out));
+}
+
+// The range path's phase 2: one thread per touched destination, in place.
+template <class Op>
+__global__ void __launch_bounds__(kThreads) fold_touched(Args a) {
+  typedef typename Op::T T;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.ND) return;
+  T* acc = static_cast<T*>(a.out);
+  fold_dest<Op>(a, a.fold_dst[i], a.fold_ptr[i], a.fold_ptr[i + 1], a.fold_runs, acc, acc);
 }
 
 template <class Op, bool W, int KG>
@@ -535,15 +578,39 @@ int launch_kg(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// One tile range: run_partials over its chunk rows, then fold_touched.
+template <class Op, bool W, int KG>
+int launch_range_kg(const Args& a, cudaStream_t stream) {
+  typedef typename Op::T T;
+  if (a.K == 0) return 0;
+  cudaError_t err;
+  if (a.NC > 0) {
+    const size_t smem = kWarps * warp_smem<T, KG>();
+    run_partials<Op, W, KG><<<(a.NC + kWarps - 1) / kWarps, kWarps * kLanes, smem, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (a.ND > 0) fold_touched<Op><<<(a.ND + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class Op, bool W>
-int launch_w(const Args& a, cudaStream_t stream) {
+int launch_w(const Args& a, cudaStream_t stream, bool range) {
+  if (range) return a.K == 1 ? launch_range_kg<Op, W, 1>(a, stream) : launch_range_kg<Op, W, 4>(a, stream);
   return a.K == 1 ? launch_kg<Op, W, 1>(a, stream) : launch_kg<Op, W, 4>(a, stream);
 }
 
 template <class Op>
-int launch(const Args& a, cudaStream_t stream) {
-  if (Op::kW && a.w != nullptr) return launch_w<Op, Op::kW>(a, stream);
-  return launch_w<Op, false>(a, stream);
+int launch(const Args& a, cudaStream_t stream, bool range = false) {
+  if (Op::kW && a.w != nullptr) return launch_w<Op, Op::kW>(a, stream, range);
+  return launch_w<Op, false>(a, stream, range);
+}
+
+template <class Op>
+int launch_pre_gather(const Args& a, cudaStream_t stream) {
+  if (a.n_pad == 0 || a.K == 0) return 0;
+  pre_gather<Op><<<(a.n_pad + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -581,6 +648,10 @@ extern "C" int packed_sweep_launch(
   a.row_active = row_active;
   a.aux0 = aux0;
   a.aux1 = aux1;
+  a.ND = 0;
+  a.fold_ptr = nullptr;
+  a.fold_dst = nullptr;
+  a.fold_runs = nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (prog) {
     case 0: return launch<PageRankOp>(a, s);
@@ -589,6 +660,82 @@ extern "C" int packed_sweep_launch(
     case 3: return launch<SSSPOp>(a, s);
     case 4: return launch<MaxLabelForwardOp>(a, s);
     case 5: return launch<ReachBackwardOp>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The range path's first entry: pre_gather alone, y[s, k] for the sources of
+// active intervals, once a sweep (y is (n_pad, K)).
+extern "C" int packed_sweep_pre_gather(
+    int prog, int K, int n_pad, int isz, long long aux_stride, const void* attrs, void* y,
+    const unsigned char* row_active, const void* aux0, const void* aux1, void* stream) {
+  Args a = {};
+  a.K = K;
+  a.n_pad = n_pad;
+  a.isz = isz;
+  a.aux_stride = aux_stride;
+  a.attrs = attrs;
+  a.y = y;
+  a.row_active = row_active;
+  a.aux0 = aux0;
+  a.aux1 = aux1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (prog) {
+    case 0: return launch_pre_gather<PageRankOp>(a, s);
+    case 1: return launch_pre_gather<BFSOp>(a, s);
+    case 2: return launch_pre_gather<WCCOp>(a, s);
+    case 3: return launch_pre_gather<SSSPOp>(a, s);
+    case 4: return launch_pre_gather<MaxLabelForwardOp>(a, s);
+    case 5: return launch_pre_gather<ReachBackwardOp>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The range path's second entry: fold one tile range's runs into acc, in
+// place. Every index is range-local: runs, positions (flat slots of the
+// range's tiles, or perm entries) and tiles (tile_sel, run_tile); y comes from
+// packed_sweep_pre_gather of the same sweep, and partial holds at least the
+// range's runs times K. run_tile is read only under a selection.
+extern "C" int packed_sweep_range_launch(
+    int prog, int K, int n_pad, int NC, int ND, int isz, long long aux_stride,
+    const void* y, void* acc, void* partial, const int* src, const int* dst, const float* w,
+    const int* run_start, const int* run_tile, const int* chunks, const int* perm,
+    const int* fold_ptr, const int* fold_dst, const int* fold_runs,
+    const unsigned char* tile_sel, const unsigned char* row_active,
+    const void* aux0, const void* aux1, void* stream) {
+  Args a = {};
+  a.K = K;
+  a.n_pad = n_pad;
+  a.NC = NC;
+  a.isz = isz;
+  a.aux_stride = aux_stride;
+  a.acc = acc;
+  a.out = acc;
+  a.y = const_cast<void*>(y);
+  a.partial = partial;
+  a.src = src;
+  a.dst = dst;
+  a.w = w;
+  a.run_start = run_start;
+  a.run_tile = run_tile;
+  a.chunks = reinterpret_cast<const int4*>(chunks);
+  a.perm = perm;
+  a.tile_sel = tile_sel;
+  a.row_active = row_active;
+  a.aux0 = aux0;
+  a.aux1 = aux1;
+  a.ND = ND;
+  a.fold_ptr = fold_ptr;
+  a.fold_dst = fold_dst;
+  a.fold_runs = fold_runs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (prog) {
+    case 0: return launch<PageRankOp>(a, s, true);
+    case 1: return launch<BFSOp>(a, s, true);
+    case 2: return launch<WCCOp>(a, s, true);
+    case 3: return launch<SSSPOp>(a, s, true);
+    case 4: return launch<MaxLabelForwardOp>(a, s, true);
+    case 5: return launch<ReachBackwardOp>(a, s, true);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,7 +12,7 @@ import time
 
 import torch
 
-__all__ = ["cuda_ms", "host_ms", "device_kernels"]
+__all__ = ["cuda_ms", "host_ms", "device_kernels", "device_busy"]
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
@@ -58,3 +58,33 @@ def device_kernels(fn, reps: int = 5, width: int = 60) -> dict:
         if str(e.device_type).endswith("CUDA") and not e.name.startswith("ProfilerStep"):
             seen.setdefault(e.name[:width], []).append(e.time_range.elapsed_us())
     return {name: {"launches": len(us), "us_per_launch": sum(us) / len(us)} for name, us in seen.items()}
+
+
+def device_busy(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms (host clock, ending
+    in a synchronize), the ms in which the device ran anything (the union of
+    its kernels' and copies' intervals, so work of two streams that overlaps
+    counts once) and the busy share. A trace that misses events gives a
+    share below the true one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if str(e.device_type).endswith("CUDA") and not e.name.startswith("ProfilerStep")
+    )
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us, "device_events": len(spans)}

@@ -331,13 +331,18 @@ def test_server_is_not_ported(driver):
 
 @pytest.mark.parametrize("driver", ["pagerank", "bfs", "sssp", "wcc"])
 def test_budget_under_auto_residency_is_not_ported(driver):
+    """A budget under the default residency="auto" means host residency (ported
+    since ROADMAP A7-A8): the driver streams, with device residency's results."""
     rt.clear_session_cache()
     tel = _edge_lists("ring-P3")[1]
     g = rt.build_dsss(tel.symmetrized() if driver == "wcc" else tel, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        getattr(talg, driver)(g, device="cpu", memory_budget=1_000)
+    host = getattr(talg, driver)(g, device="cpu", memory_budget=1_000)
+    assert rt.get_session(g, device="cpu", memory_budget=1_000).resolved_residency() == "host"
     # residency="device" keeps the budget a modelled one.
-    getattr(talg, driver)(g, device="cpu", memory_budget=1_000, residency="device")
+    dev = getattr(talg, driver)(g, device="cpu", memory_budget=1_000, residency="device")
+    assert dev.meters.bytes_h2d == 0
+    np.testing.assert_array_equal(host.attrs.view(np.int32), dev.attrs.view(np.int32))
+    assert host.meters.model_dict() == dev.meters.model_dict()
 
 
 def test_host_memory_budget_is_not_ported():

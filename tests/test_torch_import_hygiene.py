@@ -175,10 +175,10 @@ def test_missing_nvcc_raises(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs,err",
     [
-        ({"residency": "host"}, NotImplementedError),
+        ({"residency": "disk", "memory_budget": 1000}, NotImplementedError),
         ({"residency": "disk"}, NotImplementedError),
-        ({"execution": "packed", "residency": "host"}, NotImplementedError),
-        ({"execution": "per_block", "residency": "host"}, NotImplementedError),
+        ({"execution": "packed", "residency": "disk"}, NotImplementedError),
+        ({"execution": "per_block", "residency": "disk"}, NotImplementedError),
         ({"residency": "nowhere"}, ValueError),
     ],
 )
@@ -189,12 +189,13 @@ def test_unported_axes_raise(kwargs, err):
 
 def test_unported_plans_raise():
     g = _tiny_graph()
-    plan = repro_torch.ExecutionPlan(BFS(), max_iters=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        GraphSession(g, device="cpu", memory_budget=1000).run(plan)  # auto -> host
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         GraphSession(g, device="cpu", memory_budget=1000).run(
-            repro_torch.ExecutionPlan(BFS(), execution="packed", max_iters=4)
+            repro_torch.ExecutionPlan(BFS(), max_iters=4, residency="disk")
+        )
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        GraphSession(g, device="cpu", memory_budget=1000).run(
+            repro_torch.ExecutionPlan(BFS(), execution="packed", max_iters=4, residency="disk")
         )
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         repro_torch.get_session(g, device="cpu", host_memory_budget=1000)

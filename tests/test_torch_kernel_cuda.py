@@ -582,6 +582,135 @@ def test_drivers_on_card_match_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# B1 over tile ranges (host residency) and host-residency sessions
+# ---------------------------------------------------------------------------
+def _cuts(num_tiles, seed):
+    """Range cuts that cover a layout: whole, one tile each, and a random partition."""
+    r = np.random.default_rng(seed)
+    inner = np.sort(r.choice(np.arange(1, num_tiles), min(num_tiles - 1, 4), replace=False)) if num_tiles > 1 else []
+    edges = [0, *[int(x) for x in inner], num_tiles]
+    return [
+        [(0, num_tiles)],
+        [(t, t + 1) for t in range(num_tiles)],
+        list(zip(edges[:-1], edges[1:])),
+    ]
+
+
+def _leaves_on(packed, lo, hi, dev):
+    leaves = {k: getattr(packed, k)[lo:hi] for k in ps.TILE_LEAVES}
+    if packed.weights is not None:
+        leaves["weights"] = packed.weights[lo:hi]
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("layout", ["rmat-adaptive", "zipf-weighted-subshard", "rmat-src-sorted"])
+@pytest.mark.parametrize("prog", PROGRAMS, ids=lambda p: p.name)
+def test_kernel_range_launches_bitwise_equal_whole_layout(prog, layout, dev):
+    """Every range cut, folded range by range, gives the whole-layout launch's bits
+    and the plain version's over each range's leaves (carrying acc), three times."""
+    kind, weighted, src_sorted = {
+        "rmat-adaptive": ("rmat", False, False),
+        "zipf-weighted-subshard": ("zipf", True, False),
+        "rmat-src-sorted": ("rmat", True, True),
+    }[layout]
+    g = _graph(kind, 4, weighted, src_sorted=src_sorted)
+    packed = g.packed_sweep("subshard" if layout != "rmat-adaptive" else "adaptive")
+    tiles = ps.prepare_packed_tiles(packed, has_weights=weighted, device=dev)
+    index = ps.run_index(packed)
+    rng = np.random.default_rng(21)
+    for K, stacked, selective in ((1, False, False), (8, True, False), (8, True, True)):
+        attrs, acc, aux = _inputs(prog, g, K, stacked, rng, dev)
+        row = np.ones(g.P, bool)
+        sel = np.ones(packed.num_tiles, bool)
+        if selective:
+            row = rng.random(g.P) < 0.5
+            row[0] = True
+            sel = rng.random(packed.num_tiles) < 0.6
+        row_t = torch.from_numpy(row).to(dev)
+        idx = torch.from_numpy(np.flatnonzero(sel).astype(np.int32)).to(dev) if selective else None
+        want = ps.packed_sweep_update(prog, attrs, acc, aux, tiles, row_t, weighted, stacked, idx)
+        for cut in _cuts(packed.num_tiles, K):
+            items = ps.tile_ranges(packed, cut, index=index, run_tile=True)
+            bufs = []
+            for r_, arrays in items:
+                host = np.zeros(r_.nbytes, np.uint8)
+                ps.write_range(host, r_, arrays)
+                bufs.append(torch.from_numpy(host).to(dev))
+            plain = acc.clone()
+            for (r_, _), (lo, hi) in zip(items, cut):
+                local = np.flatnonzero(sel[lo:hi]).astype(np.int32)
+                plain = ps.packed_sweep_update_ref(
+                    prog, attrs, plain, aux, _leaves_on(packed, lo, hi, dev), row_t, weighted,
+                    stacked, torch.from_numpy(local).to(dev) if selective else None,
+                )
+            for _ in range(3):
+                before, pre_before = ps.launches, ps.pre_gathers
+                sweep = ps.RangeSweep(prog, attrs, aux, row_t, weighted, stacked,
+                                      max(r_.runs for r_, _ in items))
+                got = acc.clone()
+                for (r_, _), buf, (lo, hi) in zip(items, bufs, cut):
+                    local = torch.from_numpy(sel[lo:hi].astype(np.uint8)).to(dev) if selective else None
+                    sweep.update(got, buf, r_, local)
+                torch.cuda.synchronize()
+                assert ps.launches - before == len(cut) and ps.pre_gathers - pre_before == 1
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (K, cut)
+                assert torch.equal(got.view(torch.int32), plain.view(torch.int32)), (K, cut)
+
+
+@pytest.mark.parametrize("execution", ["packed_kernel", "packed", "per_block"])
+@pytest.mark.parametrize("strategy", ["spu", "dpu", "mpu"])
+def test_host_residency_on_card_bitwise_equals_device(strategy, execution, dev):
+    """Host sessions on the card stream and give device residency's bits and
+    model meters, repeated three times; B1 runs once per slab and chunk."""
+    g = _graph("rmat", 8, True)
+    pr = vp.PageRank()
+    budgets = (0, 2 * g.n_pad * pr.attr_bytes + g.m * 12 // 2)
+    plans = [ExecutionPlan(pr, strategy=strategy, max_iters=8, tol=0.0)] + [
+        ExecutionPlan(vp.SSSP(), strategy=strategy, max_iters=g.n + 1, program_kwargs={"root": r})
+        for r in (0, 7)
+    ]
+    for budget in budgets:
+        dev_sess = GraphSession(g, memory_budget=budget, residency="device", execution=execution)
+        host = GraphSession(g, memory_budget=budget, residency="host", execution=execution)
+        want_pr = dev_sess.run(plans[0])
+        want_bfs = dev_sess.run_batch(plans[1:])
+        splan = host.packed_stream_plan(strategy, pr.attr_bytes)
+        for _ in range(3):
+            before = ps.launches
+            got = host.run(plans[0])
+            torch.cuda.synchronize()
+            launched = ps.launches - before
+            np.testing.assert_array_equal(got.attrs.view(np.int32), want_pr.attrs.view(np.int32))
+            assert got.meters.model_dict() == want_pr.meters.model_dict()
+            assert got.meters.bytes_h2d > 0 or splan.pin_tiles == splan.num_tiles
+            if execution == "packed_kernel":
+                chunks = -(-(splan.num_tiles - splan.pin_tiles) // splan.chunk_tiles)
+                assert launched == got.iterations * (chunks + (splan.pin_tiles > 0))
+            else:
+                assert launched == 0
+            batch = host.run_batch(plans[1:])
+            for a, b in zip(batch, want_bfs):
+                np.testing.assert_array_equal(a.attrs.view(np.int32), b.attrs.view(np.int32))
+            assert batch.meters.model_dict() == want_bfs.meters.model_dict()
+
+
+def test_drivers_with_a_budget_stream_on_card(dev):
+    from repro_torch.core import algorithms as alg
+
+    el = _rmat_el(12, 2)
+    g = build_dsss(el, 8)
+    budget = 2 * g.n_pad * 4 + g.m * 8 // 3
+    host = alg.pagerank(g, iters=6, memory_budget=budget, device=dev)
+    device = alg.pagerank(g, iters=6, memory_budget=budget, residency="device", device=dev)
+    assert host.meters.bytes_h2d > 0 and device.meters.bytes_h2d == 0
+    np.testing.assert_array_equal(host.attrs.view(np.int32), device.attrs.view(np.int32))
+    hb = alg.multi_bfs(g, [0, 5, 9], memory_budget=budget, device=dev)
+    db = alg.multi_bfs(g, [0, 5, 9], memory_budget=budget, residency="device", device=dev)
+    for a, b in zip(hb, db):
+        np.testing.assert_array_equal(a.attrs, b.attrs)
+
+
+# ---------------------------------------------------------------------------
 # B3: flash attention
 # ---------------------------------------------------------------------------
 B3_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}

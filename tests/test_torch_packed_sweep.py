@@ -557,3 +557,22 @@ def test_argtypes_match_the_c_signature():
     for param, argtype in zip(params, ps._ARGTYPES):
         want = ctypes.c_void_p if "*" in param else scalars[param.rsplit(" ", 1)[0]]
         assert argtype is want, param
+
+
+@pytest.mark.parametrize("entry", ["packed_sweep_pre_gather", "packed_sweep_range_launch"])
+def test_range_entries_argtypes_match_the_c_signature(entry):
+    """The ctypes bindings of the host-residency path's two entries match packed_sweep.cu."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    text = (Path(ps.__file__).parent / "csrc" / "packed_sweep.cu").read_text()
+    match = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
+    assert match
+    params = [" ".join(p.split()) for p in match.group(1).split(",")]
+    argtypes = ps._ENTRIES[entry]
+    assert len(params) == len(argtypes)
+    scalars = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+    for param, argtype in zip(params, argtypes):
+        want = ctypes.c_void_p if "*" in param else scalars[param.rsplit(" ", 1)[0]]
+        assert argtype is want, param
