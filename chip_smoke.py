@@ -133,6 +133,25 @@ The engine's surface above the session, on the main path's scale-22 graph
   package's leaves, ``packed_h2d_bytes``); per-block SPU/DPU/MPU for 3
   sweeps against device per-block (``streamed_block_bytes``); and
   ``pagerank(g, memory_budget=budget)``, host residency by default.
+- disk_path (after host_path): disk residency. The main path's graph is
+  written with ``write_dsss`` into a directory under ``build/`` (file
+  bytes, write and ``open(verify=True)`` seconds, the filesystem), then
+  evicted from the page cache (fsync, ``POSIX_FADV_DONTNEED``). Under
+  budget A, ``GraphSession.open`` with ``host_memory_budget`` 0 and with
+  half of the streamed tiles' leaf bytes: PageRank SPU/DPU/MPU for 3
+  sweeps each (traced: the cold first sweep apart from the warm ones),
+  bitwise equal to device residency's, model meters identical,
+  ``bytes_disk_read`` = sweeps × ``packed_disk_bytes`` of the uncached
+  tiles, ``bytes_h2d`` = sweeps × host residency's closed form, B1 once per
+  chunk; host memory and peak device memory above the baselines; the
+  registry's byte deltas equal the meters over a warm DPU run, whose device
+  busy share is read (torch.profiler). The 8-root BFS batch from a cold
+  cache, traced to a Chrome JSON file whose sweep spans
+  ``trace_analysis.run_summaries`` sums to the meters; one per-block SPU
+  sweep (``disk_read_bytes``). The external builder at R-MAT scale 18
+  (``build_dsss_file`` over 2^20-edge chunks) against ``write_dsss`` of the
+  same graph, byte for byte; the main path's SPU ms per sweep with the
+  registry on and off, twice each. The file is deleted at the end.
 - wcc_scc: ``wcc(el)`` and ``scc(el)`` on the scale-22 edge list: WCC
   labels equal the least vertex id of each of scipy's weak components, the
   SCC labels give scipy's strong partition; one B1 launch per sweep;
@@ -140,10 +159,11 @@ The engine's surface above the session, on the main path's scale-22 graph
   in sessions.
 
 Before the card's line, the ``kernels`` line gives each kernel's launches
-on its paths (B1: main path, drivers, wcc_scc and host_path, by path in
-``launches_by_path``; on the host path one launch per pinned slab and
-streamed chunk, and ``host_path`` gives its launches and ms per sweep
-beside the pinned-copy bound), time, plain time, bound and library time; B2's are the pass
+on its paths (B1: main path, drivers, wcc_scc, host_path and disk_path, by path in
+``launches_by_path``; on the host and disk paths one launch per pinned
+slab and streamed chunk; ``host_path`` gives its launches and ms per sweep
+beside the pinned-copy bound, ``disk_path`` its launches and the cold and
+warm ms per sweep), time, plain time, bound and library time; B2's are the pass
 entry's, with ``calls_ms``/``calls_launches`` for the per-call form.
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 and the script exits non-zero. Without a CUDA device it exits non-zero
@@ -152,6 +172,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -977,6 +998,291 @@ def host_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, runs, ref, bfs, bf
                    "bound_ms": a_spu["pinned_bound_ms"], "bound_by": "bytes"}
 
 
+DISK_SWEEPS = 3  # a disk run: the cold first sweep, then warm ones
+
+
+def host_memory() -> dict:
+    """This process's resident host memory (bytes) as /proc reports it: the
+    total (which counts the pages of a mapped file the process touched) and,
+    where the kernel gives them, the anonymous and file-backed parts."""
+    out = {}
+    for name, keys in (("/proc/self/status", ("VmRSS", "RssAnon", "RssFile", "RssShmem")),
+                       ("/proc/self/smaps_rollup", ("Anonymous", "Shared_Clean", "Private_Clean"))):
+        try:
+            with open(name) as f:
+                for line in f:
+                    key, _, value = line.partition(":")
+                    if key in keys:
+                        out[key] = int(value.split()[0]) * 1024
+        except OSError:
+            pass
+    return out
+
+
+def evict_page_cache(path: str) -> None:
+    """Write the file's dirty pages back, then drop its pages from the page cache."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def mount_of(path: str) -> str:
+    """The filesystem type and mount point that hold ``path`` (/proc/mounts)."""
+    best = ("", "?")
+    real = os.path.realpath(path)
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt, fstype = parts[1], parts[2]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    return f"{best[1]} at {best[0]}"
+
+
+def disk_split(disk, Ba) -> dict:
+    """Where a disk sweep's host time goes: one pass over a stream plan's
+    chunks on the host alone — read the leaves from the file's mmap views,
+    build B1's range operands, lay them into a page-locked buffer."""
+    from repro_torch.core import streaming
+    from repro_torch.core.session import _packed_leaves
+    from repro_torch.kernels.packed_sweep import range_from_leaves, write_range
+
+    stream = disk._disk_stream(disk.packed_stream_plan("dpu", Ba), "kernel")
+    buf = streaming.host_buffer(stream.max_nbytes, disk.device.type == "cuda").numpy()
+    t = {"read_s": 0.0, "build_s": 0.0, "write_s": 0.0}
+    for lo, hi in stream.bounds:
+        t0 = time.perf_counter()
+        leaves = {k: np.array(v) for k, v in _packed_leaves(stream.packed, lo, hi).items() if v is not None}
+        t1 = time.perf_counter()
+        unit, arrays = range_from_leaves(leaves, lo, interval_size=disk.graph.interval_size,
+                                         permuted=stream.permuted)
+        t2 = time.perf_counter()
+        write_range(buf, unit, arrays)
+        t3 = time.perf_counter()
+        t["read_s"] += t1 - t0
+        t["build_s"] += t2 - t1
+        t["write_s"] += t3 - t2
+    return {**t, "chunks": len(stream.bounds)}
+
+
+def disk_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, ref, bfs, bfs_plans, smi) -> tuple[int, dict]:
+    """Disk residency at scale 22: the main path's graph written to a .dsss file
+    and streamed disk → host → device through B1's range launches."""
+    import dataclasses
+    import filecmp
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.core import iomodel
+    from repro_torch.core import session as session_mod
+    from repro_torch.graph.generators import rmat
+    from repro_torch.graph.preprocess import degree_and_densify
+    from repro_torch.obs import REGISTRY, TRACER, TraceSpec
+    from repro_torch.runtime import trace_analysis
+    from repro_torch.storage import build_dsss_file, write_dsss
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="disk_path-", dir=root)
+    try:
+        path = os.path.join(tmp, "g22.dsss")
+        t0 = time.perf_counter()
+        write_dsss(g, path)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        core.GraphSession.open(path, verify=True, memory_budget=budget)
+        verify_s = time.perf_counter() - t0
+        gc.collect()
+        evict_page_cache(path)
+        emit("disk_file", bytes=file_bytes, write_s=write_s, open_verify_s=verify_s,
+             filesystem=mount_of(path))
+
+        Ba = pr.attr_bytes
+        spu0 = sess.packed_stream_plan("spu", Ba)  # budget A: nothing pinned
+        leaf_tile = spu0.tile_edges * iomodel.PACKED_SLOT_BYTES + 4
+        half = (spu0.num_tiles - spu0.pin_tiles) // 2 * leaf_tile
+        configs = {"host0": 0, "half": half}
+        plan3 = {s: core.ExecutionPlan(pr, strategy=s, max_iters=DISK_SWEEPS, tol=0.0)
+                 for s in ("spu", "dpu", "mpu")}
+        want = {s: sess.run(p) for s, p in plan3.items()}  # device residency, same budget
+        torch.cuda.synchronize()
+        base_dev = torch.cuda.memory_allocated(dev)
+
+        ps.launches = 0  # every count to 0 just before the disk path
+        ps.pre_gathers = 0
+        dk.launches = 0
+        fa.launches = 0
+        out, disk = {}, None
+        for name, host_budget in configs.items():
+            del disk
+            gc.collect()
+            evict_page_cache(path)
+            mem0 = host_memory()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            disk = core.GraphSession.open(path, verify=False, memory_budget=budget,
+                                          host_memory_budget=host_budget)
+            for strategy, plan in plan3.items():
+                splan = disk.packed_stream_plan(strategy, Ba)
+                chunks = -(-(splan.num_tiles - splan.pin_tiles) // splan.chunk_tiles)
+                mark = TRACER.mark()
+                before = ps.launches
+                res = disk.run(dataclasses.replace(plan, trace=TraceSpec()))
+                torch.cuda.synchronize()
+                launched = ps.launches - before
+                sweeps_s = [s.dur for s in TRACER.spans(since=mark) if s.name == "sweep"]
+                it = res.meters.iterations
+                label = f"disk {name} {strategy}"
+                check(it == DISK_SWEEPS and len(sweeps_s) == it, f"{label}: {it} sweeps")
+                check(np.array_equal(res.attrs.view(np.int32), want[strategy].attrs.view(np.int32)),
+                      f"{label}: PageRank != device residency bitwise")
+                check(res.meters.model_dict() == want[strategy].meters.model_dict(),
+                      f"{label}: model meters != device residency's")
+                read = iomodel.packed_disk_bytes(splan.num_tiles - splan.pin_tiles - splan.host_tiles,
+                                                 splan.tile_edges, weighted=disk.has_weights)
+                check(res.meters.bytes_disk_read == it * read,
+                      f"{label}: bytes_disk_read {res.meters.bytes_disk_read} != {it} x {read}")
+                h2d = kernel_stream_bytes(core, sess, splan)  # host residency's closed form
+                check(res.meters.bytes_h2d == it * h2d,
+                      f"{label}: bytes_h2d {res.meters.bytes_h2d} != {it} x {h2d}")
+                check(launched == it * (chunks + (splan.pin_tiles > 0)),
+                      f"{label}: {launched} launches for {it} x {chunks} chunks")
+                out[f"{name}_{strategy}"] = {
+                    "host_tiles": splan.host_tiles, "chunks": chunks,
+                    "launches_per_sweep": launched / it,
+                    "cold_first_sweep_ms": 1e3 * sweeps_s[0],
+                    "warm_ms_per_sweep": 1e3 * float(np.mean(sweeps_s[1:])),
+                    "sweeps_ms": [1e3 * s for s in sweeps_s],
+                    "bytes_disk_read_per_sweep": read, "bytes_h2d_per_sweep": h2d,
+                    "warm_disk_gbps": read / float(np.mean(sweeps_s[1:])) / 1e9,
+                }
+            torch.cuda.synchronize()
+            mem1 = host_memory()
+            out[name] = {
+                "host_memory_budget": host_budget, "staged_host_bytes": disk.staged_host_bytes(),
+                "staging_slot_bytes": disk._disk_slots().nbytes,
+                "host_bytes_above_baseline": {k: mem1[k] - mem0.get(k, 0) for k in mem1},
+                "peak_device_bytes_above_baseline": torch.cuda.max_memory_allocated(dev) - base_dev,
+            }
+        pr_launches = ps.launches
+
+        # Registry deltas equal the meters, and the busy share, over a warm run.
+        kinds = ("h2d", "disk_read", "read_edges", "read_intervals", "read_hubs", "written_hubs",
+                 "written_intervals")
+        snap = {k: REGISTRY.value("repro_engine_bytes_total", kind=k) for k in kinds}
+        busy_res = []
+        busy = device_busy(lambda: busy_res.append(disk.run(plan3["dpu"])))
+        for k in kinds:
+            delta = REGISTRY.value("repro_engine_bytes_total", kind=k) - snap[k]
+            check(delta == getattr(busy_res[0].meters, "bytes_" + k), f"registry {k} delta != meters")
+        split = disk_split(disk, Ba)
+
+        # BFS K = 8 (selective) at budget A, nothing cached.
+        del disk
+        gc.collect()
+        evict_page_cache(path)
+        disk = core.GraphSession.open(path, verify=False, memory_budget=budget, host_memory_budget=0)
+        before = ps.launches
+        trace_path = os.path.join(tmp, "bfs.json")
+        bb = disk.run_batch([dataclasses.replace(p, trace=TraceSpec(path=trace_path)) for p in bfs_plans])
+        torch.cuda.synchronize()
+        bfs_launches = ps.launches - before
+        check(bb.fused and bb.iterations == bfs.iterations, "disk BFS batch did not fuse or took other sweeps")
+        for a, b in zip(bb, bfs):
+            check(np.array_equal(a.attrs, b.attrs), "disk BFS batch != device batch")
+        check(bb.meters.model_dict() == bfs.meters.model_dict(), "disk BFS batch model meters differ")
+        strategy = disk.compile(bfs_plans[0]).choice.strategy
+        splan = disk.packed_stream_plan(strategy, bfs_plans[0].program.attr_bytes)
+        h2d = read = 0.0
+        for row in bb.activity_log:
+            active = None if row.all() else disk._packed_tile_activity(row)
+            h2d += kernel_stream_bytes(core, sess, splan, active)
+            tiles = (splan.num_tiles - splan.pin_tiles if active is None else
+                     iomodel.selective_streamed_tiles(active, splan.pin_tiles, splan.chunk_tiles))
+            read += iomodel.packed_disk_bytes(tiles, splan.tile_edges)
+        check(bb.meters.bytes_h2d == h2d and bb.meters.bytes_disk_read == read,
+              f"disk BFS bytes {bb.meters.bytes_h2d}/{bb.meters.bytes_disk_read} != {h2d}/{read}")
+        events = trace_analysis.load_events(trace_path)
+        (summary,) = trace_analysis.run_summaries(events)
+        check(summary["residency"] == "disk" and summary["sweeps"] == bb.iterations
+              and summary["bytes_h2d"] == bb.meters.bytes_h2d
+              and summary["bytes_disk_read"] == bb.meters.bytes_disk_read,
+              f"the traced disk run's sweep spans do not sum to the meters: {summary}")
+        bfs_sweeps_ms = [1e3 * e["dur"] for e in events if e["name"] == "sweep"]
+
+        # One per-block SPU sweep at budget A, nothing cached.
+        pbd = core.GraphSession.open(path, verify=False, memory_budget=budget, host_memory_budget=0,
+                                     execution="per_block")
+        p1 = core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0)
+        before = ps.launches
+        got, want1 = pbd.run(p1), pb.run(p1)
+        check(ps.launches == before, "the per-block disk sweep launched B1")
+        check(np.array_equal(got.attrs.view(np.int32), want1.attrs.view(np.int32)),
+              "disk per_block SPU != device per_block bitwise")
+        check(got.meters.model_dict() == want1.meters.model_dict(), "disk per_block meters differ")
+        compiled = pbd.compile(p1)
+        nbytes = {k: session_mod._host_block_nbytes(b) for k, b in pbd.host_blocks.items()}
+        read_pb = iomodel.disk_read_bytes(nbytes, compiled.resident, compiled.host_cached)
+        check(got.meters.bytes_disk_read == read_pb and got.meters.bytes_h2d == read_pb,
+              f"disk per_block bytes {got.meters.bytes_disk_read} != disk_read_bytes {read_pb}")
+        total = ps.launches  # just after the disk path
+        counts = {"packed_sweep": total, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+        check(dk.launches == 0 and fa.launches == 0, f"the disk path launched another kernel: {counts}")
+        del disk, pbd
+        gc.collect()
+
+        # The external builder at scale 18 against write_dsss of the same graph.
+        src, dst = rmat(18, edge_factor=16, seed=3)
+        t0 = time.perf_counter()
+        stats = build_dsss_file(
+            lambda: ((src[lo:lo + (1 << 20)], dst[lo:lo + (1 << 20)]) for lo in range(0, len(src), 1 << 20)),
+            os.path.join(tmp, "ext18.dsss"), 8, chunk_budget=64 << 20, drop_self_loops=True,
+        )
+        ext_s = time.perf_counter() - t0
+        write_dsss(core.build_dsss(degree_and_densify(src, dst, drop_self_loops=True), 8),
+                   os.path.join(tmp, "mem18.dsss"))
+        same = filecmp.cmp(os.path.join(tmp, "ext18.dsss"), os.path.join(tmp, "mem18.dsss"), shallow=False)
+        check(same, "the external builder's scale-18 file != write_dsss of the same graph")
+
+        # Observability's cost on the device-residency main path (SPU, 10
+        # sweeps), registry on and off in turns, 10 pairs, alternating which
+        # side runs first.
+        obs_ms = {"on": [], "off": []}
+        p10 = core.ExecutionPlan(pr, strategy="spu", max_iters=10, tol=0.0)
+        for k in range(10):
+            for state in (("on", "off") if k % 2 == 0 else ("off", "on")):
+                REGISTRY.set_enabled(state == "on")
+                try:
+                    r10 = sess.run(p10)
+                finally:
+                    REGISTRY.set_enabled(True)
+                obs_ms[state].append(1e3 * r10.meters.wall_seconds / r10.meters.iterations)
+        obs_median = {k: float(np.median(v)) for k, v in obs_ms.items()}
+        emit(
+            "disk_path", launches=counts, pre_gathers=ps.pre_gathers, budget=budget,
+            configs=configs, pagerank=out, pagerank_launches=pr_launches,
+            device_busy_dpu_host0_warm=busy,
+            bfs_k8={"sweeps": bb.iterations, "launches": bfs_launches, "sweeps_ms": bfs_sweeps_ms,
+                    "bytes_h2d": bb.meters.bytes_h2d, "bytes_disk_read": bb.meters.bytes_disk_read},
+            per_block_spu={"ms": 1e3 * got.meters.wall_seconds, "bytes_disk_read": read_pb},
+            external_build_18={"n": stats.n, "m": stats.m, "seconds": ext_s, "bytes_equal": same,
+                               "peak_edge_bytes": stats.peak_edge_bytes, "chunks": stats.num_chunks},
+            host_split_warm_dpu=split, obs_spu_ms_per_sweep=obs_ms, obs_spu_median_ms=obs_median,
+            nvidia_smi=smi,
+        )
+        host0 = out["host0_spu"]
+        return total, {"launches_per_sweep": host0["launches_per_sweep"],
+                       "warm_ms_per_sweep": host0["warm_ms_per_sweep"],
+                       "cold_first_sweep_ms": host0["cold_first_sweep_ms"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -1575,6 +1881,8 @@ def main() -> None:
     tile_bytes = sum(t.numel() * t.element_size() for t in tiles.values() if torch.is_tensor(t))
     host_launches, host_b1 = host_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, runs, ref, bfs,
                                        bfs_plans, roots, tile_bytes, smi)
+    disk_launches, disk_b1 = disk_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, ref, bfs, bfs_plans,
+                                       smi)
 
     # -- phase 7: one PageRank sweep from the sub-shard kernel -----------------
     # Twice: through the pass entry (one launch per phase for all sub-shards)
@@ -1731,11 +2039,12 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/packed_sweep.cu",
         "replaces": "src/repro/kernels/packed_sweep.py:86",
-        "launches": main_launches + driver_launches + ws_launches + host_launches,
+        "launches": main_launches + driver_launches + ws_launches + host_launches + disk_launches,
         "launches_by_path": {"main_path": main_launches, "packed_scan_path": 0,
                              "drivers": driver_launches, "wcc_scc": ws_launches,
-                             "host_path": host_launches},
+                             "host_path": host_launches, "disk_path": disk_launches},
         "host_path": host_b1,
+        "disk_path": disk_b1,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

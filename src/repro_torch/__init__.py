@@ -8,9 +8,11 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card, ``device=None`` raises. On the CPU each
 kernel's plain PyTorch version runs in its place.
 
-Ported so far, at device and host residency (``residency="host"``, or a
-``memory_budget`` under ``"auto"``: the unpinned edge topology streams
-from page-locked host memory every sweep): the packed path — ``GraphSession.run``
+Ported so far, at device, host and disk residency (``residency="host"``,
+or a ``memory_budget`` under ``"auto"``: the unpinned edge topology
+streams from page-locked host memory every sweep; ``"disk"``, a session
+opened from a ``.dsss`` file with ``GraphSession.open``: it streams from
+the file's mmap views under a host memory budget): the packed path — ``GraphSession.run``
 / ``run_batch`` → the tile-sweep kernel (``kernels/csrc/packed_sweep.cu``),
 or its plain version under ``execution="packed"`` — and the per-block path
 (``execution="per_block"``: the SPU/DPU/MPU schedules, the fused strategy
@@ -20,7 +22,11 @@ and registered custom schedules such as the TurboGraph-like baseline of
 ``repro_torch.kernels.ops.subshard_update``. Above the session: the §IV
 drivers (``pagerank``, ``bfs``, ``wcc``, ``sssp``, ``scc``, ``multi_bfs``,
 ``multi_sssp``), the session cache (``get_session``) and the
-``NXGraphEngine`` shim.
+``NXGraphEngine`` shim. Beside them: the ``.dsss`` store, its external
+builder and CLI (``repro_torch.storage``), the graph text I/O
+(``repro_torch.graph.io``), and observability (``repro_torch.obs``: the
+metrics registry, the span tracer, the scrape endpoint;
+``ExecutionPlan(trace=TraceSpec(...))``).
 """
 from repro_torch.core import (
     BFS,
@@ -39,6 +45,7 @@ from repro_torch.core import (
     PageRank,
     ReachBackward,
     Result,
+    TraceSpec,
     VertexProgram,
     bfs,
     build_dsss,
@@ -58,6 +65,7 @@ from repro_torch.graph import EdgeList, degree_and_densify
 __all__ = [
     "GraphSession",
     "ExecutionPlan",
+    "TraceSpec",
     "BatchResult",
     "Result",
     "Meters",

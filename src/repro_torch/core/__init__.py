@@ -1,7 +1,7 @@
 """NXgraph core, ported to PyTorch: layout, programs, I/O model, session.
 
 - :mod:`repro_torch.core.dsss` — Destination-Sorted Sub-Shard layout and tile packing
-- :mod:`repro_torch.core.session` — GraphSession at device and host residency, the session cache
+- :mod:`repro_torch.core.session` — GraphSession at device, host and disk residency, the session cache
 - :mod:`repro_torch.core.streaming` — host→device payloads and the copy ring of host residency
 - :mod:`repro_torch.core.plan` — ExecutionPlan
 - :mod:`repro_torch.core.engine` — the NXGraphEngine shim over Session/Plan
@@ -14,17 +14,23 @@
 """
 from repro_torch.core.dsss import DSSSGraph, PackedSweep, build_dsss
 from repro_torch.core.iomodel import (
+    IOComparison,
     IOParams,
     StrategyChoice,
+    calibrate_edge_bytes,
+    compare_measured,
+    disk_read_bytes,
     dpu_io,
     modelled_io,
     mpu_io,
     mpu_q,
+    packed_disk_bytes,
     select_strategy,
     spu_io,
     turbograph_like_io,
 )
 from repro_torch.core.plan import ExecutionPlan
+from repro_torch.obs.trace import TraceSpec
 from repro_torch.core.session import (
     MODEL_METER_FIELDS,
     BatchResult,
@@ -61,6 +67,7 @@ __all__ = [
     "build_dsss",
     "GraphSession",
     "ExecutionPlan",
+    "TraceSpec",
     "BatchResult",
     "get_session",
     "clear_session_cache",
@@ -77,6 +84,11 @@ __all__ = [
     "modelled_io",
     "select_strategy",
     "turbograph_like_io",
+    "IOComparison",
+    "compare_measured",
+    "calibrate_edge_bytes",
+    "disk_read_bytes",
+    "packed_disk_bytes",
     "VertexProgram",
     "PageRank",
     "BFS",

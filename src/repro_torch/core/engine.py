@@ -23,13 +23,6 @@ from repro_torch.device import resolve_device
 __all__ = ["NXGraphEngine", "Meters", "Result"]
 
 
-def _tier(session: GraphSession, residency: str) -> str:
-    """The tier a residency names for this session ("auto" resolved; "disk" is not ported)."""
-    if residency == "auto":
-        return "host" if session.memory_budget is not None else "device"
-    return residency
-
-
 class NXGraphEngine:
     """The NXgraph engine over a :class:`DSSSGraph`, one program (shim).
 
@@ -40,9 +33,11 @@ class NXGraphEngine:
         custom strategy. "auto" applies the paper's adaptive selection from
         ``memory_budget``.
       memory_budget: bytes of fast-tier memory (B_M). ``None`` = unlimited.
-      residency: "device" | "host" | "auto" (see :class:`GraphSession`;
-        ``"auto"`` with a budget means host residency, which streams the
-        unpinned edge topology every sweep). ``None`` is "auto".
+      residency: "device" | "host" | "disk" | "auto" (see
+        :class:`GraphSession`; ``"auto"`` with a budget means host
+        residency, which streams the unpinned edge topology every sweep;
+        ``"disk"`` needs a shared ``session`` opened with
+        :meth:`GraphSession.open`). ``None`` is "auto".
       execution: "per_block" | "packed" | "packed_kernel" | "auto", a
         per-plan override (see :class:`GraphSession`). ``None`` inherits
         the session's.
@@ -93,9 +88,9 @@ class NXGraphEngine:
                     f"device={device!r} conflicts with the shared session's "
                     f"device ({session.device}); configure it on the GraphSession"
                 )
-            if residency is not None and _tier(session, residency) != _tier(
-                session, session.residency
-            ):
+            if residency is not None and session.resolved_residency(
+                residency
+            ) != session.resolved_residency():
                 raise ValueError(
                     f"residency={residency!r} conflicts with the shared "
                     f"session's residency ({session.residency!r}); configure "
@@ -174,7 +169,7 @@ class NXGraphEngine:
         if checkpoint is not None or resume_from is not None or cancel is not None:
             raise NotImplementedError(
                 "checkpoint=, resume_from= and cancel= (sweep snapshots and "
-                "cancellation) are not ported yet (ROADMAP A10)"
+                "cancellation) are not ported yet (ROADMAP A10, second part: reliability)"
             )
         plan = ExecutionPlan(
             self.program,

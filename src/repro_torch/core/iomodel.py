@@ -19,11 +19,16 @@ __all__ = [
     "select_strategy",
     "StrategyChoice",
     "modelled_io",
+    "IOComparison",
+    "compare_measured",
+    "calibrate_edge_bytes",
     "turbograph_like_io",
     "PACKED_SLOT_BYTES",
     "KERNEL_SLOT_BYTES",
     "packed_h2d_bytes",
     "packed_kernel_h2d_bytes",
+    "packed_disk_bytes",
+    "disk_read_bytes",
     "selective_streamed_tiles",
     "streamed_block_bytes",
     "selective_edge_bytes",
@@ -112,17 +117,90 @@ def modelled_io(p: IOParams, B_M: int | None, strategy: str) -> tuple[float, flo
     raise ValueError(f"no closed form for strategy {strategy!r}")
 
 
-def select_strategy(p: IOParams, B_M: int | None) -> StrategyChoice:
+def select_strategy(
+    p: IOParams, B_M: int | None, *, host_B_M: int | None = None
+) -> StrategyChoice:
     """SPU when both padded attribute copies fit, else MPU with the largest Q
-    (DPU at Q == 0)."""
+    (DPU at Q == 0).
+
+    ``host_B_M`` is the disk tier's host RAM budget (a disk-backed
+    session passes its ``host_memory_budget``): edge topology that fits
+    neither the device pins nor the host cache re-streams from disk every
+    sweep, adding ``max(0, m·Be − device_pinned − host_B_M)`` to the
+    modelled read. Only SPU pins edges on the device (its budget left
+    after both padded attribute copies).
+    """
     if B_M is None:
-        return StrategyChoice("spu", p.P, 0.0, 0.0)
-    if B_M >= 2 * p.P * -(-p.n // p.P) * p.Ba:  # 2 · n_pad · Ba
+        choice = StrategyChoice("spu", p.P, 0.0, 0.0)
+    elif B_M >= 2 * p.P * -(-p.n // p.P) * p.Ba:  # 2 · n_pad · Ba
         r, w = spu_io(p, B_M)
-        return StrategyChoice("spu", p.P, r, w)
-    Q = mpu_q(p, B_M)
-    r, w = mpu_io(p, B_M)
-    return StrategyChoice("dpu" if Q == 0 else "mpu", Q, r, w)
+        choice = StrategyChoice("spu", p.P, r, w)
+    else:
+        Q = mpu_q(p, B_M)
+        r, w = mpu_io(p, B_M)
+        choice = StrategyChoice("dpu" if Q == 0 else "mpu", Q, r, w)
+    if host_B_M is not None:
+        pinned = 0
+        if choice.strategy == "spu":
+            n_pad = p.P * -(-p.n // p.P)
+            pinned = p.m * p.Be if B_M is None else max(0, B_M - 2 * n_pad * p.Ba)
+        disk = max(0.0, p.m * p.Be - min(pinned, p.m * p.Be) - host_B_M)
+        choice = StrategyChoice(
+            choice.strategy, choice.Q, choice.modelled_read + disk, choice.modelled_write
+        )
+    return choice
+
+
+@dataclasses.dataclass(frozen=True)
+class IOComparison:
+    """Measured engine meters vs. the Table II closed forms, per iteration.
+
+    ``slack_bytes`` is the discretization slack the measured numbers may
+    deviate by (SPU: one sub-shard, since residency is block-granular;
+    DPU/MPU: the padded intervals, ``(n_pad − n)·Ba`` a read and a write).
+    """
+
+    strategy: str
+    modelled_read: float
+    modelled_write: float
+    measured_read: float
+    measured_write: float
+    slack_bytes: float
+
+    @property
+    def within_slack(self) -> bool:
+        return (
+            abs(self.measured_read - self.modelled_read) <= self.slack_bytes + 1e-6
+            and abs(self.measured_write - self.modelled_write) <= self.slack_bytes + 1e-6
+        )
+
+
+def compare_measured(
+    per_iteration_meters, p: IOParams, strategy: str, B_M: int | None, *, slack_bytes: float = 0.0
+) -> IOComparison:
+    """A run's per-iteration byte meters (``Meters.per_iteration()``) against
+    the closed forms."""
+    read, write = modelled_io(p, B_M, strategy)
+    return IOComparison(
+        strategy=strategy,
+        modelled_read=read,
+        modelled_write=write,
+        measured_read=float(per_iteration_meters.bytes_read),
+        measured_write=float(per_iteration_meters.bytes_written),
+        slack_bytes=float(slack_bytes),
+    )
+
+
+def calibrate_edge_bytes(p: IOParams, meters) -> float:
+    """Physical bytes per modelled edge byte, from actual transfers.
+
+    ``p.Be`` scaled by ``meters.bytes_h2d / meters.bytes_read_edges``, the
+    measured inflation of what is shipped over the model's ``Be`` an edge;
+    ``p.Be`` unchanged when nothing was streamed (device residency).
+    """
+    if getattr(meters, "bytes_h2d", 0.0) <= 0.0 or meters.bytes_read_edges <= 0.0:
+        return float(p.Be)
+    return float(p.Be) * meters.bytes_h2d / meters.bytes_read_edges
 
 
 # Raw bytes per tile edge slot the packed host-streaming path ships under
@@ -147,6 +225,40 @@ def packed_h2d_bytes(
     """
     per_tile = tile_edges * (PACKED_SLOT_BYTES + (4 if weighted else 0)) + 4
     return float(streamed_tiles * per_tile)
+
+
+def packed_disk_bytes(
+    streamed_tiles: int, tile_edges: int, *, weighted: bool = False
+) -> float:
+    """Closed-form disk-tier bytes per sweep of packed disk streaming.
+
+    A chunk read from the ``.dsss`` file is the JAX package's tile leaves,
+    so the volume is :func:`packed_h2d_bytes` over the tiles that are
+    neither device-pinned nor host-cached (``num_tiles − pin_tiles −
+    host_tiles`` of the session's ``PackedStreamPlan``), whatever the
+    execution ships to the device.
+    """
+    return packed_h2d_bytes(streamed_tiles, tile_edges, weighted=weighted)
+
+
+def disk_read_bytes(block_nbytes, resident, host_cached, *, active_rows=None) -> float:
+    """Closed-form per-sweep disk reads of the per-block disk stream.
+
+    ``block_nbytes`` maps sub-shard ``(i, j)`` to the raw bytes of its
+    padded block; a sweep reads each processed block that is neither
+    device-pinned (``resident``) nor host-cached (``host_cached``) once.
+    ``active_rows`` (a (P,) bitmap) restricts it to the active source
+    intervals; ``None`` is a full sweep.
+    """
+    return float(
+        sum(
+            b
+            for k, b in block_nbytes.items()
+            if k not in resident
+            and k not in host_cached
+            and (active_rows is None or active_rows[k[0]])
+        )
+    )
 
 
 def packed_kernel_h2d_bytes(

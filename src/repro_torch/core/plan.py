@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.vertex_programs import VertexProgram
+from repro_torch.obs.trace import TraceSpec
 
 __all__ = ["ExecutionPlan", "FrozenArray"]
 
@@ -78,6 +79,14 @@ class ExecutionPlan:
       activity: ``"auto"`` lets monotone programs skip tiles whose source
         intervals did not change; ``"off"`` forces full sweeps. Results
         are bit-identical either way.
+      checkpoint: sweep-level snapshots belong to ROADMAP A10's second
+        part (reliability); anything but ``None`` raises
+        :class:`NotImplementedError`.
+      trace: a :class:`repro_torch.obs.TraceSpec` turns the span recorder
+        on for this run (staging, each sweep with its byte deltas, the
+        run) and, with ``trace.path``, exports its spans as Chrome
+        ``trace_event`` JSON when it ends. Observational only, so it is
+        not part of :meth:`batch_key`: traced and untraced plans fuse.
       program_kwargs: Initialize kwargs (e.g. ``{"root": 3}``), validated
         against ``program.accepted_kwargs()``.
     """
@@ -89,9 +98,21 @@ class ExecutionPlan:
     residency: str | None = None
     execution: str | None = None
     activity: str = "auto"
+    checkpoint: Any = None
+    trace: TraceSpec | None = None
     program_kwargs: Any = ()
 
     def __post_init__(self):
+        if self.checkpoint is not None:
+            raise NotImplementedError(
+                "ExecutionPlan.checkpoint is not ported yet "
+                "(ROADMAP A10, second part: reliability)"
+            )
+        if self.trace is not None and not isinstance(self.trace, TraceSpec):
+            raise TypeError(
+                "trace must be a repro_torch.obs.TraceSpec or None, "
+                f"got {type(self.trace).__name__}"
+            )
         if self.residency not in (None, "device", "host", "disk", "auto"):
             raise ValueError(
                 "residency must be None, 'device', 'host', 'disk' or 'auto', "
@@ -139,7 +160,7 @@ class ExecutionPlan:
         """Plans sharing a batch_key may fuse into one sweep sequence.
 
         Program, strategy, limits and the residency/execution/activity axes
-        must agree; Initialize kwargs may differ. ``run_batch`` also needs
+        must agree; Initialize kwargs and the trace spec may differ. ``run_batch`` also needs
         the plans' aux to be identical or stackable.
         """
         return (

@@ -5,7 +5,7 @@ A :class:`GraphSession` stages its graph once and executes any number of
 fuses K compatible plans into one sweep sequence whose tensors carry a
 leading ``(K,)`` query axis.
 
-Two residencies, the ``residency`` axis:
+Three residencies, the ``residency`` axis:
 
 * ``"device"``: what a run needs is uploaded to the card once, and the
   memory budget only shapes the modelled meters.
@@ -18,6 +18,15 @@ Two residencies, the ``residency`` axis:
   :func:`_packed_host_sweep`), the per-block path sub-shard blocks
   (:class:`_BlockFetcher`). Results and model meters equal device
   residency's bit for bit.
+* ``"disk"`` (and ``"auto"`` for a session opened from a ``.dsss`` file
+  with :meth:`GraphSession.open`): the same streams, read from the file's
+  read-only mmap views (:mod:`repro_torch.storage`). The
+  ``host_memory_budget`` keeps a window of the stream in host memory
+  after the device pins (page-locked, built once); everything else is
+  read from the file every sweep, charged to ``Meters.bytes_disk_read``
+  where it is read, and laid straight into a page-locked slot of the
+  copy ring. Nothing edge-scale is held in host memory outside that
+  window and the two slots.
 
 Three execution paths, the ``execution`` axis:
 
@@ -57,15 +66,21 @@ in through :meth:`GraphSession.register_strategy` and run per-block.
 :func:`get_session` keeps one staged session per graph object and variant
 (the drivers of :mod:`repro_torch.core.algorithms` share it).
 
+Observability (:mod:`repro_torch.obs`): the byte counters
+``repro_engine_bytes_total{kind}`` move on the same lines that charge
+:class:`Meters` (the physical kinds where the copy is queued or the file
+read, the model kinds once a sweep), and a plan's ``trace`` records
+staging, sweep and run spans.
+
 Not ported yet, and refused with :class:`NotImplementedError` naming the
-ROADMAP item: disk residency and a session's ``host_memory_budget`` (A9).
-Observability counters and the transient-fault retries of the JAX
-package's copies belong to A10 and are not here: a failed copy or launch
-raises.
+ROADMAP item: fault injection (``fault_plan=``), sweep snapshots and the
+transient-fault retries of the JAX package's copies (A10, second part): a
+failed copy or launch raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 import weakref
 from collections import OrderedDict
@@ -78,8 +93,10 @@ from repro_torch.core import streaming
 from repro_torch.core.dsss import DSSSGraph, active_tile_mask, tile_source_spans
 from repro_torch.core.identities import reduce_identity, segment_fill_value
 from repro_torch.core.iomodel import (
+    PACKED_SLOT_BYTES,
     IOParams,
     StrategyChoice,
+    modelled_io,
     mpu_q,
     select_strategy,
 )
@@ -93,10 +110,13 @@ from repro_torch.kernels.packed_sweep import (
     packed_sweep_update,
     packed_sweep_update_ref,
     prepare_packed_tiles,
+    range_from_leaves,
     run_index,
     tile_ranges,
     write_range,
 )
+from repro_torch.obs.registry import REGISTRY as _REGISTRY
+from repro_torch.obs.trace import TRACER as _TRACER
 
 __all__ = [
     "GraphSession",
@@ -126,10 +146,45 @@ MODEL_METER_FIELDS = (
 )
 
 _NOT_PORTED = {
-    "disk": "residency='disk' is not ported yet (ROADMAP A9)",
-    "host_memory_budget": "host_memory_budget (the disk tier's host RAM "
-    "bound) is not ported yet (ROADMAP A9)",
+    "fault_plan": "fault_plan= (fault injection) is not ported yet "
+    "(ROADMAP A10, second part: reliability)",
 }
+
+# Observability handles (repro_torch.obs), the JAX package's metric names.
+# The byte counter moves on the same lines that charge the matching Meters
+# field (h2d and disk_read where the copy is queued or the file read, the
+# model kinds once a sweep), so a run's registry deltas equal its meters
+# field for field. Each call is one branch under REPRO_OBS=0.
+_OBS_BYTES = _REGISTRY.counter(
+    "repro_engine_bytes_total",
+    "Engine bytes moved/charged, by Meters field (bytes_<kind>)",
+    ("kind",),
+)
+_OBS_H2D = _OBS_BYTES.labels(kind="h2d")
+_OBS_DISK = _OBS_BYTES.labels(kind="disk_read")
+_OBS_MODEL_BYTES = tuple(
+    (f, _OBS_BYTES.labels(kind=f[len("bytes_"):]))
+    for f in MODEL_METER_FIELDS
+    if f.startswith("bytes_")
+)
+_OBS_SWEEPS = _REGISTRY.counter("repro_engine_sweeps_total", "Update sweeps executed")
+_OBS_RUNS = _REGISTRY.counter(
+    "repro_engine_runs_total",
+    "Engine runs completed",
+    ("program", "strategy", "residency", "execution"),
+)
+_OBS_PEAK = _REGISTRY.gauge(
+    "repro_engine_peak_device_graph_bytes",
+    "Device-held topology high-water mark of the last run (model units)",
+)
+_OBS_DRIFT = _REGISTRY.gauge(
+    "repro_iomodel_drift_ratio",
+    "Measured/modelled per-iteration slow-tier bytes of the last run with "
+    "a Table II closed form (1.0 = the exactness contract holds live)",
+    ("direction", "strategy"),
+)
+# Per-process run ids, linking "sweep" spans to their "run" span.
+_RUN_SEQ = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -140,7 +195,11 @@ class Meters:
     units: at device residency, the whole graph; at host residency, the
     pinned set plus the units in flight. ``bytes_h2d`` is physical: the raw
     bytes of every host→device copy of edge topology, charged where the
-    copy is queued (0 at device residency).
+    copy is queued (0 at device residency). ``bytes_disk_read`` is the raw
+    bytes read from the ``.dsss`` file under disk residency, each sweep,
+    for every block or tile chunk that is neither device-pinned nor
+    host-cached (the JAX package's figure: the page cache may absorb a
+    re-read, the meter charges it); 0 at the other residencies.
     """
 
     bytes_read_edges: float = 0.0
@@ -149,6 +208,7 @@ class Meters:
     bytes_written_hubs: float = 0.0
     bytes_written_intervals: float = 0.0
     bytes_h2d: float = 0.0
+    bytes_disk_read: float = 0.0
     peak_device_graph_bytes: float = 0.0
     iterations: int = 0
     blocks_processed: int = 0
@@ -176,7 +236,6 @@ class Meters:
         """The byte fields divided by ``max(iterations, 1)``; the rest as is."""
         k = max(self.iterations, 1)
         out = dataclasses.replace(self)
-        # bytes_disk_read joins this list with ROADMAP A9.
         for f in (
             "bytes_read_edges",
             "bytes_read_intervals",
@@ -184,6 +243,7 @@ class Meters:
             "bytes_written_hubs",
             "bytes_written_intervals",
             "bytes_h2d",
+            "bytes_disk_read",
         ):
             setattr(out, f, getattr(self, f) / k)
         return out
@@ -245,13 +305,17 @@ class CompiledPlan:
 
     ``resident`` is the set of sub-shards the memory budget pins in the
     fast tier; at device residency it drives the modelled meters only, at
-    host residency the per-block path pins exactly these blocks.
+    host and disk residency the per-block path pins exactly these blocks.
+    ``host_cached`` is the disk tier's middle level: the sub-shards the
+    ``host_memory_budget`` keeps in host memory, whose fetches charge no
+    ``bytes_disk_read`` (empty except under ``"disk"``).
     """
 
     params: IOParams
     choice: StrategyChoice
     resident: frozenset
     residency: str = "device"
+    host_cached: frozenset = frozenset()
     execution: str = "packed_kernel"
     # "selective" iff the program is monotone and activity != "off".
     activity: str = "off"
@@ -266,8 +330,12 @@ class PackedStreamPlan:
     model streams every edge); the other tiles go up every sweep in chunks
     of ``chunk_tiles``, two in flight, so the device topology peaks at the
     pinned prefix plus two chunks (``max_chunk_model_bytes`` each).
-    ``host_tiles`` is the disk tier's RAM-cached level (ROADMAP A9), 0
-    here. Field for field the JAX package's plan for the same session.
+    ``host_tiles`` is the disk tier's host-cached level (0 except for a
+    disk-backed session): the chunk-aligned tiles right after the pinned
+    prefix that the ``host_memory_budget`` keeps in host memory; their
+    chunks charge ``bytes_h2d`` but not ``bytes_disk_read``, and every
+    tile past ``pin_tiles + host_tiles`` is read from the file each sweep.
+    Field for field the JAX package's plan for the same session.
     """
 
     pin_tiles: int
@@ -833,6 +901,14 @@ def _packed_host_sweep(ctx: _RunContext, attrs_flat, acc, row_active, meters: Me
     (:class:`~repro_torch.kernels.packed_sweep.RangeSweep`); ``"packed"``
     ships the JAX package's tile leaves and runs the plain tile sweep on
     each chunk, carrying the accumulator.
+
+    ``residency="disk"`` runs the same loop over a :class:`_DiskStream`:
+    the chunks of the plan's host-cached window come from page-locked
+    payloads built once, every other chunk is read from the file's mmap
+    views each sweep (its JAX leaves' bytes charged to
+    ``bytes_disk_read``), built into the same payload and laid into a
+    page-locked staging slot, from which the ring copies it. So
+    ``bytes_h2d`` and the bits are host residency's.
     """
     sess, prog = ctx.session, ctx.program
     dev = sess.device
@@ -842,9 +918,12 @@ def _packed_host_sweep(ctx: _RunContext, attrs_flat, acc, row_active, meters: Me
     meters.peak_device_graph_bytes = max(meters.peak_device_graph_bytes, pin_model)
     stream, starts = None, []
     if splan.pin_tiles < splan.num_tiles:
-        stream = sess._staged.packed_stream(
-            sess.packing, splan.pin_tiles, splan.chunk_tiles, form, dev.type == "cuda"
-        )
+        if ctx.residency == "disk":
+            stream = sess._disk_stream(splan, form)
+        else:
+            stream = sess._staged.packed_stream(
+                sess.packing, splan.pin_tiles, splan.chunk_tiles, form, dev.type == "cuda"
+            )
         starts = [
             c for c, (lo, hi) in enumerate(stream.bounds)
             if tile_active is None or tile_active[lo:hi].any()
@@ -867,22 +946,31 @@ def _packed_host_sweep(ctx: _RunContext, attrs_flat, acc, row_active, meters: Me
         return acc
     ring = sess._copy_ring(form, stream.max_nbytes)
     ring.begin()
-    ring.put(0, stream.host[starts[0]])
+    units = [None] * len(starts)
+
+    def put(n: int) -> None:
+        src, units[n], nbytes, slot = stream.fetch(starts[n], meters)
+        done = ring.put(n, src)
+        if slot is not None:
+            sess._disk_slots().copied(slot, done)
+        meters.bytes_h2d += nbytes
+        _OBS_H2D.inc(nbytes)
+
+    put(0)
     Be = sess.Be
     for n, c in enumerate(starts):
         if n + 1 < len(starts):
-            ring.put(n + 1, stream.host[starts[n + 1]])
-        meters.bytes_h2d += stream.nbytes[c]
+            put(n + 1)
         live = pin_model + stream.edges[c] * Be
         if n + 1 < len(starts):
             live += stream.edges[starts[n + 1]] * Be
         meters.peak_device_graph_bytes = max(meters.peak_device_graph_bytes, float(live))
         buf = ring.take(n)
         if form == "kernel":
-            ranges.update(acc, buf, stream.units[c])
+            ranges.update(acc, buf, units[n])
         else:
             acc = packed_sweep_update_ref(
-                prog, attrs_flat, acc, ctx.aux, streaming.typed_views(buf, stream.units[c]),
+                prog, attrs_flat, acc, ctx.aux, streaming.typed_views(buf, units[n]),
                 row_active, sess.has_weights, ctx.aux_batched,
             )
         ring.release(n)
@@ -894,7 +982,7 @@ def _iteration_packed(ctx: _RunContext, attrs, active, meters: Meters):
 
     Meters from metadata → pre-iteration globals → accumulator init → tile
     sweep (compacted to the active tiles under selective execution; at
-    host residency, :func:`_packed_host_sweep`) → batched apply. Returns
+    host and disk residency, :func:`_packed_host_sweep`) → batched apply. Returns
     the new ``(K, P, isz)`` attrs and the ``(K, P)`` numpy map of changed
     intervals.
     """
@@ -918,7 +1006,7 @@ def _iteration_packed(ctx: _RunContext, attrs, active, meters: Meters):
     row_active = torch.from_numpy(row_mask).to(sess.device)
     selective = ctx.activity == "selective" and not row_mask.all()
     tile_active = sess._packed_tile_activity(row_mask) if selective else None
-    if ctx.residency == "host":
+    if ctx.residency in ("host", "disk"):
         acc = _packed_host_sweep(ctx, attrs_flat, acc, row_active, meters, tile_active)
     else:
         tiles = sess._staged.packed_tiles(sess.packing, sess.device)
@@ -992,7 +1080,8 @@ def _device_block(host: dict, device: torch.device) -> dict:
         "weights": (
             None
             if host["weights"] is None
-            else torch.from_numpy(np.ascontiguousarray(host["weights"][:e])).to(device)
+            # A copy: a store's blocks are read-only mmap views.
+            else torch.from_numpy(np.array(host["weights"][:e], dtype=np.float32)).to(device)
         ),
     }
 
@@ -1048,6 +1137,28 @@ class _BlockPayload:
     e: int
     u: int
     grouped: bool  # edges already grouped by hub slot
+    slot: int | None = None  # its HostSlots slot, when read from disk into one
+
+
+def _block_payload(host: dict, pin_memory: bool, slots: "streaming.HostSlots | None" = None):
+    """One padded host block as a :class:`_BlockPayload`.
+
+    In a buffer of its own, or in the next of ``slots`` (a disk read, once
+    a sweep).
+    """
+    arrays = {name: host[name] for name in _BLOCK_ARRAYS}
+    sections, nbytes = streaming.layout(arrays)
+    if slots is None:
+        slot, buf = None, streaming.host_buffer(nbytes, pin_memory)
+    else:
+        slot, buf = slots.take(nbytes)
+    streaming.fill(buf.numpy(), sections, arrays)
+    e, u = host["e"], host["u"]
+    hub_inv = host["hub_inv"][:e]
+    return _BlockPayload(
+        buf=buf, sections=sections, nbytes=nbytes, e=e, u=u,
+        grouped=bool(np.all(hub_inv[1:] >= hub_inv[:-1])), slot=slot,
+    )
 
 
 @dataclasses.dataclass
@@ -1069,6 +1180,89 @@ class _PackedStream:
     max_nbytes: int
     max_runs: int
 
+    def fetch(self, c: int, meters: Meters) -> tuple:
+        """Chunk ``c``: ``(host payload, unit, raw bytes, staging slot or None)``."""
+        return self.host[c], self.units[c], self.nbytes[c], None
+
+
+class _DiskStream:
+    """The streamed tiles of a disk-backed session's plan, read every sweep.
+
+    The chunks of the plan's host-cached window (``host_tiles`` after the
+    pinned prefix) are built once into page-locked payloads of their own
+    (:meth:`GraphSession._packed_ram_chunk`). Every other chunk is read from
+    the file's mmap views at each :meth:`fetch`, which charges the JAX
+    package's leaves of its tiles to ``bytes_disk_read``, builds B1's
+    range operands from those leaves alone (form ``"kernel"``; or lays out
+    the leaves, form ``"leaves"``) and writes them into the next of the
+    session's two page-locked staging slots. ``max_nbytes`` and
+    ``max_runs`` are bounds from the layout's per-tile metadata (a chunk's
+    rows, runs and touched destinations are at most its runs), so the
+    device ring and the range scratch are sized before any chunk is read.
+    """
+
+    def __init__(self, sess: "GraphSession", splan: PackedStreamPlan, form: str):
+        self.sess = sess
+        self.form = form
+        staged = sess._staged
+        self.packed = staged.packed_host(sess.packing)
+        nt, T = splan.num_tiles, splan.tile_edges
+        self.bounds = [
+            (lo, min(lo + splan.chunk_tiles, nt))
+            for lo in range(splan.pin_tiles, nt, splan.chunk_tiles)
+        ]
+        self.cache_end = splan.pin_tiles + splan.host_tiles
+        e_cum = np.concatenate([[0], np.cumsum(self.packed.e_valid, dtype=np.int64)])
+        u_cum = np.concatenate([[0], np.cumsum(self.packed.u, dtype=np.int64)])
+        self.edges = [int(e_cum[hi] - e_cum[lo]) for lo, hi in self.bounds]
+        w = 4 if sess.has_weights else 0
+        self.permuted = False
+        if form == "kernel":
+            self.permuted = staged.layout_permuted(sess.packing)
+            runs = [int(u_cum[hi] - u_cum[lo]) for lo, hi in self.bounds]
+            bounds = [
+                (hi - lo) * T * (8 + w) + 48 * r + 4 + (4 * e if self.permuted else 0)
+                for (lo, hi), r, e in zip(self.bounds, runs, self.edges)
+            ]
+            self.max_runs = max(runs, default=0)
+        else:
+            bounds = [(hi - lo) * (T * (PACKED_SLOT_BYTES + w) + 4) for lo, hi in self.bounds]
+            self.max_runs = 0
+        self.max_nbytes = max(bounds, default=0)
+
+    def build(self, lo: int, hi: int, slots: "streaming.HostSlots | None") -> tuple:
+        """Tiles ``[lo, hi)`` read from the file and laid out: ``(buf, unit, nbytes, slot)``.
+
+        Into the next of ``slots``, or a page-locked buffer of its own
+        (``slots=None``).
+        """
+        leaves = _packed_leaves(self.packed, lo, hi)
+        if self.form == "kernel":
+            unit, arrays = range_from_leaves(
+                leaves, lo, interval_size=self.sess.graph.interval_size, permuted=self.permuted
+            )
+            nbytes, write = unit.nbytes, write_range
+        else:
+            arrays = leaves
+            unit, nbytes = streaming.layout(leaves)
+            write = streaming.fill
+        if slots is None:
+            slot, buf = None, streaming.host_buffer(nbytes, self.sess.device.type == "cuda")
+        else:
+            slot, buf = slots.take(nbytes)
+        write(buf.numpy(), unit, arrays)
+        return buf[:nbytes], unit, nbytes, slot
+
+    def fetch(self, c: int, meters: Meters) -> tuple:
+        """Chunk ``c``: ``(host payload, unit, raw bytes, staging slot or None)``."""
+        lo, hi = self.bounds[c]
+        if hi <= self.cache_end:
+            return self.sess._packed_ram_chunk(self, lo, hi) + (None,)
+        nbytes = sum(a.nbytes for a in _packed_leaves(self.packed, lo, hi).values() if a is not None)
+        meters.bytes_disk_read += nbytes
+        _OBS_DISK.inc(nbytes)
+        return self.build(lo, hi, self.sess._disk_slots())
+
 
 def _packed_leaves(packed, lo: int, hi: int) -> dict:
     """The JAX package's streamed leaves of tiles [lo, hi) (``_packed_host_chunk``)."""
@@ -1083,7 +1277,7 @@ def _packed_leaves(packed, lo: int, hi: int) -> dict:
 
 
 class _StagedGraph:
-    """Staged state that is a pure function of the graph.
+    """Staged state that is a pure function of the graph (and its store).
 
     Per-sub-shard edge and hub counts (the meters' metadata); the padded
     host blocks of the per-block path, built at first use so a session that
@@ -1094,10 +1288,18 @@ class _StagedGraph:
     For host residency, in host memory: the blocks as byte payloads
     (:meth:`block_payloads`) and each stream plan's chunks
     (:meth:`packed_stream`), page-locked for a CUDA session.
+
+    With a ``store`` (a :class:`repro_torch.storage.DSSSStore`), the host
+    blocks and the host :class:`PackedSweep` of the stored packing are the
+    file's read-only mmap views, not built or re-packed, and tile ranges
+    are built from each range's own leaves
+    (:func:`~repro_torch.kernels.packed_sweep.range_from_leaves`): no
+    whole-layout run index is built for them.
     """
 
-    def __init__(self, graph: DSSSGraph):
+    def __init__(self, graph: DSSSGraph, store=None):
         self.graph = graph
+        self.store = store
         self.block_e = graph.density_matrix()
         self.block_u = graph.hub_counts()
         self.block_keys = frozenset(
@@ -1111,33 +1313,48 @@ class _StagedGraph:
         self._packed_index: dict[str, dict] = {}
         self._packed_streams: dict[tuple, _PackedStream] = {}
         self._packed_prefixes: dict[tuple, tuple] = {}
+        self._permuted: dict[str, bool] = {}
         self._block_payloads: dict[bool, dict] = {}
         self.fused: dict[torch.device, dict] = {}
         self.kernel_operands: dict[tuple, tuple] = {}
 
     @property
     def host_blocks(self) -> dict[tuple[int, int], dict]:
-        """The padded numpy "shard files", built once at first use."""
+        """The padded numpy "shard files", built once at first use (a store's mmap views)."""
         if self._host_blocks is None:
-            self._host_blocks = self.graph.host_blocks()
+            if self.store is not None:
+                self._host_blocks = self.store.host_blocks()
+            else:
+                self._host_blocks = self.graph.host_blocks()
         return self._host_blocks
 
     def device_blocks(self, device: torch.device) -> dict[tuple[int, int], dict]:
         """Every host block uploaded to ``device``, once per device."""
         blocks = self._device_blocks.get(device)
         if blocks is None:
-            blocks = {
-                key: _device_block(host, device)
-                for key, host in self.host_blocks.items()
-            }
+            with _TRACER.span("stage_device_blocks", cat="staging", blocks=len(self.block_keys)):
+                blocks = {
+                    key: _device_block(host, device)
+                    for key, host in self.host_blocks.items()
+                }
             self._device_blocks[device] = blocks
         return blocks
 
     def packed_host(self, mode: str):
-        """The host-side :class:`PackedSweep`, built once per mode."""
+        """The host-side :class:`PackedSweep`, built once per mode.
+
+        A store's packed section when its mode matches (mmap views, not
+        re-packed); otherwise packed from the graph's (maybe mmap) arrays.
+        """
         packed = self._packed_host.get(mode)
         if packed is None:
-            packed = self._packed_host[mode] = self.graph.packed_sweep(mode)
+            stored = self.store.packed() if self.store is not None else None
+            if stored is not None and stored.mode == mode:
+                packed = stored
+            else:
+                with _TRACER.span("stage_packed_host", cat="staging", mode=mode):
+                    packed = self.graph.packed_sweep(mode)
+            self._packed_host[mode] = packed
         return packed
 
     def packed_tiles(self, mode: str, device: torch.device) -> dict:
@@ -1145,10 +1362,13 @@ class _StagedGraph:
         tiles = self._packed_tiles.get((mode, device))
         if tiles is None:
             packed = self.packed_host(mode)
-            tiles = prepare_packed_tiles(
-                packed, has_weights=packed.weights is not None, device=device,
-                index=self.packed_run_index(mode),
-            )
+            with _TRACER.span(
+                "stage_packed_tiles", cat="staging", mode=mode, tiles=int(packed.num_tiles)
+            ):
+                tiles = prepare_packed_tiles(
+                    packed, has_weights=packed.weights is not None, device=device,
+                    index=self.packed_run_index(mode),
+                )
             self._packed_tiles[(mode, device)] = tiles
         return tiles
 
@@ -1167,6 +1387,52 @@ class _StagedGraph:
             index = self._packed_index[mode] = run_index(self.packed_host(mode))
         return index
 
+    def layout_permuted(self, mode: str) -> bool:
+        """Does the layout's run index carry ``perm`` (non-contiguous runs)?
+
+        From the run index where one is built; else scanned in bounded tile
+        ranges, and only for a ``src_sorted`` graph: a destination-sorted
+        layout's runs are contiguous by construction.
+        """
+        flag = self._permuted.get(mode)
+        if flag is None:
+            if mode in self._packed_index:
+                flag = "perm" in self._packed_index[mode]
+            elif not self.graph.src_sorted:
+                flag = False
+            else:
+                packed = self.packed_host(mode)
+                T = packed.tile_edges
+                step = max(1, (1 << 22) // max(T, 1))
+                flag = False
+                for lo in range(0, packed.num_tiles, step):
+                    rl = np.asarray(packed.run_local[lo:lo + step])
+                    valid = np.arange(T)[None, :] < packed.e_valid[lo:lo + step, None]
+                    if np.any((rl[:, 1:] < rl[:, :-1]) & valid[:, 1:]):
+                        flag = True
+                        break
+            self._permuted[mode] = flag
+        return flag
+
+    def range_units(self, mode: str, bounds: list, run_tile: bool = False) -> list:
+        """Kernel B1's ``(TileRange, arrays)`` of tile ranges ``bounds``.
+
+        From the whole layout's run index (:func:`tile_ranges`), or, for a
+        store, from each range's own leaves (:func:`range_from_leaves`):
+        the same arrays.
+        """
+        packed = self.packed_host(mode)
+        if self.store is None:
+            return tile_ranges(packed, bounds, index=self.packed_run_index(mode), run_tile=run_tile)
+        permuted = self.layout_permuted(mode)
+        return [
+            range_from_leaves(
+                _packed_leaves(packed, lo, hi), lo, interval_size=self.graph.interval_size,
+                permuted=permuted, run_tile=run_tile,
+            )
+            for lo, hi in bounds
+        ]
+
     def _stage_units(self, mode: str, bounds: list, form: str, pin_memory: bool, run_tile=False):
         """Tile ranges ``bounds`` as back-to-back payloads of one host buffer.
 
@@ -1177,7 +1443,7 @@ class _StagedGraph:
         """
         packed = self.packed_host(mode)
         if form == "kernel":
-            items = tile_ranges(packed, bounds, index=self.packed_run_index(mode), run_tile=run_tile)
+            items = self.range_units(mode, bounds, run_tile)
             sizes = [unit.nbytes for unit, _ in items]
             write = write_range
         else:
@@ -1237,18 +1503,11 @@ class _StagedGraph:
         """Every padded host block as a byte payload, built once per pinning."""
         payloads = self._block_payloads.get(pin_memory)
         if payloads is None:
-            payloads = {}
-            for key, host in self.host_blocks.items():
-                arrays = {name: host[name] for name in _BLOCK_ARRAYS}
-                sections, nbytes = streaming.layout(arrays)
-                buf = streaming.host_buffer(nbytes, pin_memory)
-                streaming.fill(buf.numpy(), sections, arrays)
-                e, u = host["e"], host["u"]
-                hub_inv = host["hub_inv"][:e]
-                payloads[key] = _BlockPayload(
-                    buf=buf, sections=sections, nbytes=nbytes, e=e, u=u,
-                    grouped=bool(np.all(hub_inv[1:] >= hub_inv[:-1])),
-                )
+            with _TRACER.span("stage_block_payloads", cat="staging", blocks=len(self.block_keys)):
+                payloads = {
+                    key: _block_payload(host, pin_memory)
+                    for key, host in self.host_blocks.items()
+                }
             self._block_payloads[pin_memory] = payloads
         return payloads
 
@@ -1271,6 +1530,11 @@ class _BlockFetcher:
       (:func:`_block_on_device`). The charge is the same ``e·Be``, and
       ``bytes_h2d`` records the raw padded bytes shipped. The peak is the
       pinned set plus the block in use and the one prefetched.
+    * ``residency="disk"``: the same stream, but a block outside the
+      ``host_memory_budget``'s cache is read from the file's mmap views
+      into the next of the session's two page-locked staging slots, and
+      its raw padded bytes are charged to ``bytes_disk_read`` there;
+      cached blocks come from their page-locked copies, built once.
     """
 
     def __init__(
@@ -1278,7 +1542,9 @@ class _BlockFetcher:
     ):
         self._session = session
         self._resident = compiled.resident
-        self._host = compiled.residency == "host"
+        self._host = compiled.residency in ("host", "disk")
+        self._disk = compiled.residency == "disk"
+        self._host_cached = compiled.host_cached
         self._meters = meters
         self._pinned = pinned
         self._ring: dict[tuple[int, int], tuple] = {}
@@ -1307,12 +1573,28 @@ class _BlockFetcher:
             self._prefetch(order[0])
         return self._next
 
+    def _payload(self, key: tuple[int, int]) -> _BlockPayload:
+        """The block's host payload; a read from the file charges its raw bytes."""
+        sess = self._session
+        pin = sess.device.type == "cuda"
+        if not self._disk:
+            return sess._staged.block_payloads(pin)[key]
+        if key in self._host_cached:
+            return sess._host_cache_block(key)
+        payload = _block_payload(sess._staged.host_blocks[key], pin, sess._disk_slots())
+        self._meters.bytes_disk_read += payload.nbytes
+        _OBS_DISK.inc(payload.nbytes)
+        return payload
+
     def _upload(self, key: tuple[int, int]) -> tuple:
         """Queue one block's host→device copy and charge its raw bytes."""
         sess = self._session
-        payload = sess._staged.block_payloads(sess.device.type == "cuda")[key]
+        payload = self._payload(key)
         buf, done = streaming.upload(payload.buf, sess.device, sess._copy_stream())
+        if payload.slot is not None:
+            sess._disk_slots().copied(payload.slot, done)
         self._meters.bytes_h2d += payload.nbytes
+        _OBS_H2D.inc(payload.nbytes)
         return payload, buf, done
 
     def _prefetch(self, key: tuple[int, int]) -> None:
@@ -1365,9 +1647,14 @@ class GraphSession:
         residency what stays on the device.
       residency: ``"device"`` — what a run needs is uploaded once —,
         ``"host"`` — the budget is enforced: the edge topology it does not
-        pin is copied from page-locked host memory every sweep — or
-        ``"auto"``, which means ``"host"`` when a ``memory_budget`` is set
-        and ``"device"`` otherwise. ``"disk"`` is not ported yet (A9).
+        pin is copied from page-locked host memory every sweep —,
+        ``"disk"`` — a session opened with :meth:`open` only: the same
+        streams, read from the ``.dsss`` file's mmap views under the
+        three-level budget (``memory_budget`` pins on the device,
+        ``host_memory_budget`` caches in host memory, the rest is read
+        from the file every sweep) — or ``"auto"``: ``"disk"`` for a
+        session opened from a file, else ``"host"`` when a
+        ``memory_budget`` is set and ``"device"`` otherwise.
       execution: ``"packed_kernel"`` (every sweep runs the tile-sweep
         kernel), ``"packed"`` (the same sweep with the kernel's plain
         version), ``"per_block"`` (the paper's schedules, one sub-shard at a
@@ -1379,6 +1666,12 @@ class GraphSession:
       Bv: bytes per vertex id.
       staged: the graph's staged state, shared by sessions over the same
         graph object (:func:`get_session` passes it); ``None`` stages anew.
+      host_memory_budget: the disk tier's host RAM bound, bytes of blocks or
+        tile chunks kept in host memory after the device pins, in
+        streaming order; ``None`` caches everything. Disk-backed sessions
+        only.
+      fault_plan: fault injection, ROADMAP A10's second part: anything but
+        ``None`` raises :class:`NotImplementedError`.
     """
 
     def __init__(
@@ -1393,11 +1686,13 @@ class GraphSession:
         Be: int = 8,
         Bv: int = 4,
         staged: "_StagedGraph | None" = None,
+        host_memory_budget: int | None = None,
+        fault_plan=None,
     ):
-        _check_axis("residency", residency, ("device", "host", "auto"), ("disk",))
-        _check_axis(
-            "execution", execution, ("packed_kernel", "packed", "per_block", "auto"), ()
-        )
+        if fault_plan is not None:
+            raise NotImplementedError(_NOT_PORTED["fault_plan"])
+        _check_axis("residency", residency, ("device", "host", "disk", "auto"))
+        _check_axis("execution", execution, ("packed_kernel", "packed", "per_block", "auto"))
         if packing not in ("adaptive", "subshard", "auto"):
             raise ValueError(
                 f"packing must be 'adaptive', 'subshard' or 'auto', got {packing!r}"
@@ -1422,6 +1717,20 @@ class GraphSession:
         if staged is not None and staged.graph is not graph:
             raise ValueError("staged state belongs to another graph object")
         self._staged = staged if staged is not None else _StagedGraph(graph)
+        self._store = self._staged.store
+        if residency == "disk" and self._store is None:
+            raise ValueError(
+                "residency='disk' requires a disk-backed session: open the graph "
+                "from a .dsss container with GraphSession.open(path) "
+                "(see repro_torch.storage)"
+            )
+        if host_memory_budget is not None and self._store is None:
+            raise ValueError(
+                "host_memory_budget is the disk tier's RAM-cache bound and only "
+                "applies to disk-backed sessions (GraphSession.open); in-memory "
+                "sessions are bounded by memory_budget alone"
+            )
+        self.host_memory_budget = host_memory_budget
         self._residency: dict[int, frozenset] = {}  # Ba -> resident set
         self._compiled: dict[tuple, CompiledPlan] = {}
         # Host residency: what the budget keeps on the device (one of the
@@ -1431,6 +1740,80 @@ class GraphSession:
         self._stream_plans: dict[tuple, PackedStreamPlan] = {}
         self._rings: dict[str, streaming.CopyRing] = {}
         self._stream = None
+        # Disk tier: the host_memory_budget's caches (blocks, tile chunks),
+        # built once each; the stream of each plan; the two staging slots.
+        self._host_cache: dict[tuple[int, int], _BlockPayload] = {}
+        self._packed_ram: dict[tuple, tuple] = {}
+        self._disk_streams: dict[tuple, _DiskStream] = {}
+        self._slots: streaming.HostSlots | None = None
+
+    @classmethod
+    def open(
+        cls,
+        path: str,
+        *,
+        device: str | torch.device | None = None,
+        memory_budget: int | None = None,
+        host_memory_budget: int | None = None,
+        residency: str = "auto",
+        execution: str = "auto",
+        packing: str = "auto",
+        Be: int = 8,
+        Bv: int = 4,
+        verify: bool = True,
+        fault_plan=None,
+        read_policy=None,
+    ) -> "GraphSession":
+        """Open a ``.dsss`` container as a disk-backed session.
+
+        The graph, its padded blocks and its stored tile layout are the
+        file's read-only mmap views: nothing edge-scale is read into host
+        memory until a sweep fetches it, and then only the
+        ``host_memory_budget``'s cache, a chunk being built and the copy
+        ring's two page-locked slots are held (no whole-layout run index,
+        no page-locked copy of the whole stream). ``residency`` defaults
+        (``"auto"``) to ``"disk"``. ``verify=True`` checks every segment's
+        checksum first, so a truncated or bit-flipped file fails loudly;
+        ``read_policy`` (a :class:`repro_torch.storage.ReadPolicy`) checks
+        each segment a run reads on first touch instead, re-reading with
+        backoff and quarantining a segment that stays bad.
+        """
+        if fault_plan is not None:
+            raise NotImplementedError(_NOT_PORTED["fault_plan"])
+        from repro_torch.storage.format import open_dsss
+
+        store = open_dsss(path, verify=verify, read_policy=read_policy)
+        graph = store.graph()
+        return cls(
+            graph,
+            device=device,
+            memory_budget=memory_budget,
+            residency=residency,
+            execution=execution,
+            packing=packing,
+            Be=Be,
+            Bv=Bv,
+            staged=_StagedGraph(graph, store=store),
+            host_memory_budget=host_memory_budget,
+        )
+
+    @property
+    def store(self):
+        """The backing :class:`repro_torch.storage.DSSSStore`, or ``None``."""
+        return self._store
+
+    def _heal_store_segments(self, prefix: str) -> None:
+        """Check the store segments a disk run reads, once, under its ReadPolicy.
+
+        Block (``blk_``) or tile (``p_``) segments are checksummed on first
+        touch with bounded re-reads, so a torn read heals and a segment
+        that stays bad raises :class:`~repro_torch.storage.DegradedReadError`
+        before any of its bytes reach the device. No-op without a policy.
+        """
+        store = self._store
+        if store is None or store.read_policy is None:
+            return
+        store.ensure_segments(n for n in store.segments if n.startswith(prefix))
 
     @property
     def block_keys(self) -> frozenset:
@@ -1445,23 +1828,38 @@ class GraphSession:
     @property
     def blocks(self) -> dict[tuple[int, int], dict]:
         """The per-block path's blocks: on the device (uploaded once) at
-        device residency, the padded host blocks at host residency (the
-        device mirror would break the budget)."""
-        if self.resolved_residency() == "host":
+        device residency, the padded host blocks (a store's mmap views) at
+        host and disk residency (the device mirror would break the budget)."""
+        if self.resolved_residency() in ("host", "disk"):
             return self._staged.host_blocks
         return self._staged.device_blocks(self.device)
 
     def staged_host_bytes(self) -> int:
-        """Raw host bytes of the padded host blocks (building them if needed)."""
+        """Raw host bytes the staged graph holds.
+
+        In-memory sessions: the padded host blocks (building them if
+        needed). Disk-backed sessions: the mmap views hold nothing, so only
+        the ``host_memory_budget``'s caches count, as they fill.
+        """
+        if self._store is not None:
+            total = sum(p.nbytes for p in self._host_cache.values())
+            total += sum(nbytes for _, _, nbytes in self._packed_ram.values())
+            return int(total)
         return int(sum(_host_block_nbytes(b) for b in self.host_blocks.values()))
 
     def resolved_residency(self, override: str | None = None) -> str:
-        """Resolve the residency axis to ``"device"`` or ``"host"`` (disk: A9)."""
+        """Resolve the residency axis to ``"device"``, ``"host"`` or ``"disk"``."""
         mode = override or self.residency
         if mode == "auto":
-            mode = "host" if self.memory_budget is not None else "device"
-        if mode not in ("device", "host"):
-            raise NotImplementedError(_NOT_PORTED.get(mode, mode))
+            if self._store is not None:
+                mode = "disk"
+            else:
+                mode = "host" if self.memory_budget is not None else "device"
+        if mode == "disk" and self._store is None:
+            raise ValueError(
+                "residency='disk' requires a disk-backed session: open the graph "
+                "with GraphSession.open(path)"
+            )
         return mode
 
     def pinned_device_bytes(self) -> tuple[float, float]:
@@ -1487,7 +1885,10 @@ class GraphSession:
         after both attribute copies (``2·n_pad·Ba``) pins a prefix of the
         tiles; DPU/MPU pin none. The rest streams in chunks of at most
         ``min(256 KiB, budget/4)`` of tile data (never below one tile).
-        The JAX package's plan, field for field.
+        A disk-backed session's ``host_memory_budget`` then keeps whole
+        chunks after the prefix in host memory, in order, each costed at
+        its JAX leaves' bytes (``host_tiles``). The JAX package's plan,
+        field for field.
         """
         key = (strategy == "spu", Ba)
         plan = self._stream_plans.get(key)
@@ -1513,6 +1914,20 @@ class GraphSession:
         for lo in range(pin, nt, chunk):
             hi = min(lo + chunk, nt)
             max_chunk = max(max_chunk, float(cum[hi - 1]) - (float(cum[lo - 1]) if lo else 0.0))
+        host_tiles = 0
+        if self._store is not None:
+            if self.host_memory_budget is None:
+                host_tiles = nt - pin
+            else:
+                per_edge = PACKED_SLOT_BYTES + (4 if self.has_weights else 0)
+                leftover = self.host_memory_budget
+                for lo in range(pin, nt, chunk):
+                    hi = min(lo + chunk, nt)
+                    raw = (hi - lo) * (T * per_edge + 4)
+                    if leftover < raw:
+                        break
+                    leftover -= raw
+                    host_tiles += hi - lo
         plan = PackedStreamPlan(
             pin_tiles=pin,
             chunk_tiles=chunk,
@@ -1520,6 +1935,7 @@ class GraphSession:
             tile_edges=T,
             pin_model_bytes=pin_model,
             max_chunk_model_bytes=max_chunk,
+            host_tiles=host_tiles,
         )
         self._stream_plans[key] = plan
         return plan
@@ -1529,6 +1945,65 @@ class GraphSession:
         if self.device.type == "cuda" and self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         return self._stream
+
+    def _disk_slots(self) -> streaming.HostSlots:
+        """The two page-locked staging slots of the disk reads, made once."""
+        if self._slots is None:
+            self._slots = streaming.HostSlots(self.device.type == "cuda")
+        return self._slots
+
+    def _disk_stream(self, splan: PackedStreamPlan, form: str) -> "_DiskStream":
+        """The :class:`_DiskStream` of one stream plan and form, made once."""
+        key = (splan, form)
+        stream = self._disk_streams.get(key)
+        if stream is None:
+            stream = self._disk_streams[key] = _DiskStream(self, splan, form)
+        return stream
+
+    def _packed_ram_chunk(self, stream: "_DiskStream", lo: int, hi: int) -> tuple:
+        """Tiles ``[lo, hi)`` of the host-cached window: ``(buf, unit, nbytes)``, built once.
+
+        Read from the file the first time and kept page-locked, so later
+        sweeps copy it with no read (and charge no ``bytes_disk_read``).
+        """
+        key = (lo, hi, stream.form)
+        chunk = self._packed_ram.get(key)
+        if chunk is None:
+            chunk = self._packed_ram[key] = stream.build(lo, hi, None)[:3]
+        return chunk
+
+    def _resolve_host_cache(self, strategy: str, params: IOParams) -> frozenset:
+        """The sub-shards the ``host_memory_budget`` keeps in host memory (disk only).
+
+        Picked in row-major streaming order among the blocks the device
+        budget did not pin, each costed at its padded bytes;
+        ``host_memory_budget=None`` caches every one. The JAX package's set.
+        """
+        if self._store is None:
+            return frozenset()
+        resident = self._resolve_residency(strategy, params)
+        if self.host_memory_budget is None:
+            return frozenset(k for k in self.block_keys if k not in resident)
+        host = self.host_blocks
+        picked = set()
+        leftover = self.host_memory_budget
+        for key in sorted(self.block_keys):
+            if key in resident:
+                continue
+            cost = _host_block_nbytes(host[key])
+            if leftover >= cost:
+                picked.add(key)
+                leftover -= cost
+        return frozenset(picked)
+
+    def _host_cache_block(self, key: tuple[int, int]) -> _BlockPayload:
+        """The page-locked copy of one host-cached block, read from the file once."""
+        payload = self._host_cache.get(key)
+        if payload is None:
+            payload = self._host_cache[key] = _block_payload(
+                self._staged.host_blocks[key], self.device.type == "cuda"
+            )
+        return payload
 
     def _copy_ring(self, form: str, nbytes: int) -> streaming.CopyRing:
         """The two-slot ring of one stream form, grown when a chunk is larger."""
@@ -1550,15 +2025,21 @@ class GraphSession:
             del self._pinned[key]
         todo = [k for k in sorted(resident) if k in self.block_keys and k not in self._pinned]
         if todo:
-            payloads = self._staged.block_payloads(self.device.type == "cuda")
-            for key in todo:
-                p = payloads[key]
-                buf, done = streaming.upload(p.buf, self.device, self._copy_stream())
-                if done is not None:
-                    torch.cuda.current_stream(self.device).wait_event(done)
-                self._pinned[key] = _block_on_device(
-                    streaming.typed_views(buf, p.sections), p.e, p.u, p.grouped
-                )
+            pin = self.device.type == "cuda"
+            with _TRACER.span("stage_pins", cat="staging", blocks=len(todo)):
+                for key in todo:
+                    # A store's blocks go up straight from the file: no
+                    # page-locked copy of every block is built for them.
+                    if self._store is not None:
+                        p = _block_payload(self._staged.host_blocks[key], pin)
+                    else:
+                        p = self._staged.block_payloads(pin)[key]
+                    buf, done = streaming.upload(p.buf, self.device, self._copy_stream())
+                    if done is not None:
+                        torch.cuda.current_stream(self.device).wait_event(done)
+                    self._pinned[key] = _block_on_device(
+                        streaming.typed_views(buf, p.sections), p.e, p.u, p.grouped
+                    )
         return self._pinned
 
     def _ensure_packed_pins(self, pin_tiles: int, form: str) -> tuple:
@@ -1580,10 +2061,11 @@ class GraphSession:
             self._packed_pins = (0, form, None, 0.0, 0.0)
             return None, 0.0
         packed = self._staged.packed_host(self.packing)
-        host, unit, actual = self._staged.packed_prefix(
-            self.packing, pin_tiles, form, self.device.type == "cuda"
-        )
-        buf = host.to(self.device)
+        with _TRACER.span("stage_packed_pins", cat="staging", tiles=pin_tiles):
+            host, unit, actual = self._staged.packed_prefix(
+                self.packing, pin_tiles, form, self.device.type == "cuda"
+            )
+            buf = host.to(self.device)
         pins = (buf, unit) if form == "kernel" else streaming.typed_views(buf, unit)
         model = float(packed.e_valid[:pin_tiles].astype(np.int64).sum()) * self.Be
         self._packed_pins = (pin_tiles, form, pins, model, float(actual))
@@ -1639,18 +2121,19 @@ class GraphSession:
         fused = self._staged.fused.get(self.device)
         if fused is None:
             g = self.graph
-            order = np.argsort(g.dst, kind="stable")
-            dst = g.dst[order]
 
             def up(a, dtype):
                 return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
 
-            fused = {
-                "src": up(g.src[order], np.int64),
-                "dst": up(dst, np.int64),
-                "weights": None if g.weights is None else up(g.weights[order], np.float32),
-                "lengths": up(np.bincount(dst, minlength=g.n_pad), np.int64),
-            }
+            with _TRACER.span("stage_fused", cat="staging", m=int(g.m)):
+                order = np.argsort(g.dst, kind="stable")
+                dst = g.dst[order]
+                fused = {
+                    "src": up(g.src[order], np.int64),
+                    "dst": up(dst, np.int64),
+                    "weights": None if g.weights is None else up(g.weights[order], np.float32),
+                    "lengths": up(np.bincount(dst, minlength=g.n_pad), np.int64),
+                }
             self._staged.fused[self.device] = fused
         return fused
 
@@ -1713,6 +2196,11 @@ class GraphSession:
                 choice=choice,
                 resident=self._resolve_residency(choice.strategy, params),
                 residency=residency,
+                host_cached=(
+                    self._resolve_host_cache(choice.strategy, params)
+                    if residency == "disk"
+                    else frozenset()
+                ),
                 execution=self.resolved_execution(choice.strategy, plan.execution),
                 activity=(
                     "selective"
@@ -1725,7 +2213,12 @@ class GraphSession:
 
     def _resolve_choice(self, strategy: str, params: IOParams) -> StrategyChoice:
         if strategy == "auto":
-            return select_strategy(params, self.memory_budget)
+            # A disk-backed session's host cache adds the modelled disk
+            # re-read to each candidate (select_strategy's host_B_M term).
+            return select_strategy(
+                params, self.memory_budget,
+                host_B_M=self.host_memory_budget if self._store is not None else None,
+            )
         if strategy in ("spu", "dpu", "mpu", "fused"):
             Q = self.graph.P
             if strategy == "dpu":
@@ -1804,10 +2297,48 @@ class GraphSession:
                     return False
         return True
 
+    def _publish_iomodel_drift(self, compiled: CompiledPlan, meters: Meters) -> None:
+        """Gauge the run's measured/modelled slow-tier bytes per sweep.
+
+        Per direction, (model-unit bytes a sweep) / (Table II closed form);
+        1.0 means the engine moved what the paper's model predicts.
+        Strategies without a closed form, and zero closed forms, publish
+        nothing.
+        """
+        iters = meters.iterations
+        if not iters:
+            return
+        strategy = compiled.choice.strategy
+        try:
+            read, write = modelled_io(compiled.params, self.memory_budget, strategy)
+        except ValueError:
+            return
+        if read > 0:
+            _OBS_DRIFT.labels(direction="read", strategy=strategy).set(
+                meters.bytes_read / iters / read
+            )
+        if write > 0:
+            _OBS_DRIFT.labels(direction="write", strategy=strategy).set(
+                meters.bytes_written / iters / write
+            )
+
     def _execute(self, plan: ExecutionPlan, kwargs_list: list[dict]) -> BatchResult:
+        """Run the sweeps of one plan for ``len(kwargs_list)`` queries.
+
+        Observability: a plan's ``trace`` turns the tracer on for the run,
+        pins and staging included, and restores it after; each sweep's span
+        carries its ``bytes_h2d`` and ``bytes_disk_read`` deltas (so over a
+        run they sum to the meters), the run's span its residency and
+        execution. The model byte counters are published once a sweep as
+        meter deltas; the physical ones where the bytes move. Spans time
+        the host: a packed sweep ends in the copy of its changed map to the
+        host, so its span closes after its device work.
+        """
         g = self.graph
         prog = plan.program
         compiled = self.compile(plan)
+        if compiled.residency == "disk":
+            self._heal_store_segments("blk_" if compiled.execution == "per_block" else "p_")
         dev = self.device
         isz = g.interval_size
         K = len(kwargs_list)
@@ -1818,60 +2349,131 @@ class GraphSession:
         aux, aux_batched = _batch_aux(prog, g, kwargs_list)
         aux = {k: v.to(dev) for k, v in aux.items()}
         meters = Meters()
-        # Per-block host runs pin the resident set here; packed host runs pin
-        # a tile prefix inside the sweep. Device runs leave pins as they are.
-        host = compiled.residency == "host"
-        pinned = self._ensure_pinned(compiled.resident) if host and compiled.execution == "per_block" else {}
-        fetcher = _BlockFetcher(self, compiled, meters, pinned)
-        if compiled.choice.strategy == "fused":
-            # The fused path holds the whole edge list on the device.
-            meters.peak_device_graph_bytes = max(
-                meters.peak_device_graph_bytes, float(g.m * self.Be)
+        tspec = plan.trace
+        obs_on = _REGISTRY.enabled
+        was_tracing = _TRACER.enabled
+        tracing = was_tracing or tspec is not None
+        trace_sweeps = tracing and (tspec is None or tspec.sweeps)
+        run_id = next(_RUN_SEQ)
+        mark = _TRACER.mark() if tracing else 0
+        if tracing and not was_tracing:
+            _TRACER.enabled = True
+        try:
+            # Per-block host and disk runs pin the resident set here; packed
+            # ones pin a tile prefix inside the sweep. Device runs leave pins
+            # as they are.
+            streamed = compiled.residency in ("host", "disk")
+            pinned = (
+                self._ensure_pinned(compiled.resident)
+                if streamed and compiled.execution == "per_block"
+                else {}
             )
-        ctx = _RunContext(
-            session=self,
-            program=prog,
-            choice=compiled.choice,
-            resident=compiled.resident,
-            params=compiled.params,
-            aux=aux,
-            aux_views=[self._interval_aux(aux, k, aux_batched) for k in range(g.P)],
-            valid=(torch.arange(g.n_pad, device=dev) < g.n).reshape(g.P, isz),
-            tol=torch.tensor(plan.tol, dtype=torch.float32, device=dev),
-            K=K,
-            fetcher=fetcher,
-            activity=compiled.activity,
-            aux_batched=aux_batched,
-            execution=compiled.execution,
-            residency=compiled.residency,
-        )
-        if compiled.execution in ("packed", "packed_kernel"):
-            iteration = _iteration_packed
-        else:
-            iteration = _STRATEGIES[compiled.choice.strategy]
-        converged_at: list[int | None] = [
-            0 if not active[m].any() else None for m in range(K)
-        ]
-        sweeps = 0
-        activity_log: list[np.ndarray] = []
-        start = time.perf_counter()
-        for _ in range(plan.max_iters):
-            if not active.any():
-                break
-            # The sweep's processed-interval bitmap, before it moves on.
-            if compiled.activity == "selective":
-                activity_log.append(active.any(axis=0).copy())
+            fetcher = _BlockFetcher(self, compiled, meters, pinned)
+            if compiled.choice.strategy == "fused":
+                # The fused path holds the whole edge list on the device.
+                meters.peak_device_graph_bytes = max(
+                    meters.peak_device_graph_bytes, float(g.m * self.Be)
+                )
+            ctx = _RunContext(
+                session=self,
+                program=prog,
+                choice=compiled.choice,
+                resident=compiled.resident,
+                params=compiled.params,
+                aux=aux,
+                aux_views=[self._interval_aux(aux, k, aux_batched) for k in range(g.P)],
+                valid=(torch.arange(g.n_pad, device=dev) < g.n).reshape(g.P, isz),
+                tol=torch.tensor(plan.tol, dtype=torch.float32, device=dev),
+                K=K,
+                fetcher=fetcher,
+                activity=compiled.activity,
+                aux_batched=aux_batched,
+                execution=compiled.execution,
+                residency=compiled.residency,
+            )
+            if compiled.execution in ("packed", "packed_kernel"):
+                iteration = _iteration_packed
             else:
-                activity_log.append(np.ones(g.P, dtype=bool))
-            attrs, active = iteration(ctx, attrs, active, meters)
-            sweeps += 1
-            meters.iterations += 1
-            for m in range(K):
-                if converged_at[m] is None and not active[m].any():
-                    converged_at[m] = sweeps
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        meters.wall_seconds = time.perf_counter() - start
+                iteration = _STRATEGIES[compiled.choice.strategy]
+            converged_at: list[int | None] = [
+                0 if not active[m].any() else None for m in range(K)
+            ]
+            sweeps = 0
+            activity_log: list[np.ndarray] = []
+            start = time.perf_counter()
+            for _ in range(plan.max_iters):
+                if not active.any():
+                    break
+                # The sweep's processed-interval bitmap, before it moves on.
+                if compiled.activity == "selective":
+                    activity_log.append(active.any(axis=0).copy())
+                else:
+                    activity_log.append(np.ones(g.P, dtype=bool))
+                if obs_on or trace_sweeps:
+                    s_h2d, s_disk = meters.bytes_h2d, meters.bytes_disk_read
+                    s_model = [getattr(meters, f) for f, _ in _OBS_MODEL_BYTES]
+                    t_sweep = time.perf_counter()
+                attrs, active = iteration(ctx, attrs, active, meters)
+                sweeps += 1
+                meters.iterations += 1
+                if obs_on:
+                    _OBS_SWEEPS.inc()
+                    for (f, child), before in zip(_OBS_MODEL_BYTES, s_model):
+                        delta = getattr(meters, f) - before
+                        if delta:
+                            child.inc(delta)
+                if trace_sweeps:
+                    _TRACER.record(
+                        "sweep", t_sweep, time.perf_counter(), cat="engine",
+                        args={
+                            "run": run_id,
+                            "sweep": sweeps - 1,
+                            "bytes_h2d": meters.bytes_h2d - s_h2d,
+                            "bytes_disk_read": meters.bytes_disk_read - s_disk,
+                            "active_intervals": int(activity_log[-1].sum()),
+                            "intervals": int(g.P),
+                        },
+                    )
+                for m in range(K):
+                    if converged_at[m] is None and not active[m].any():
+                        converged_at[m] = sweeps
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            end = time.perf_counter()
+            meters.wall_seconds = end - start
+            if tracing:
+                _TRACER.record(
+                    "run", start, end, cat="engine",
+                    args={
+                        "run": run_id,
+                        "program": prog.name,
+                        "strategy": compiled.choice.strategy,
+                        "residency": compiled.residency,
+                        "execution": compiled.execution,
+                        "K": K,
+                        "n": int(g.n),
+                        "m": int(g.m),
+                        "P": int(g.P),
+                        "sweeps": sweeps,
+                        "bytes_h2d": meters.bytes_h2d,
+                        "bytes_disk_read": meters.bytes_disk_read,
+                        "converged": bool(not active.any()),
+                    },
+                )
+                if tspec is not None and tspec.path:
+                    _TRACER.export(tspec.path, since=mark)
+        finally:
+            if tracing and not was_tracing:
+                _TRACER.enabled = False
+        if obs_on:
+            _OBS_RUNS.labels(
+                program=prog.name,
+                strategy=compiled.choice.strategy,
+                residency=compiled.residency,
+                execution=compiled.execution,
+            ).inc()
+            _OBS_PEAK.set(meters.peak_device_graph_bytes)
+            self._publish_iomodel_drift(compiled, meters)
         host_attrs = attrs.reshape(K, -1).cpu().numpy()
         results = []
         for m in range(K):
@@ -1962,22 +2564,23 @@ def get_session(
     packing, byte sizes: every session axis is in the key) share one
     :class:`_StagedGraph`, whose device mirrors and tile layouts are built
     once per device and packing. ``device=None`` is the CUDA card.
-    ``host_memory_budget`` belongs to the disk tier, not ported yet: any
-    value but ``None`` raises.
+    ``host_memory_budget`` is keyed and forwarded, as in the JAX package:
+    an in-memory graph refuses it with the session's own error (it is the
+    disk tier's RAM bound; disk-backed sessions come from
+    :meth:`GraphSession.open`).
     """
-    if host_memory_budget is not None:
-        raise NotImplementedError(_NOT_PORTED["host_memory_budget"])
     dev = resolve_device(device)
     slot = _SESSION_LRU.get_or_build(
         graph, (), lambda: {"staged": _StagedGraph(graph), "variants": {}}
     )
-    key = (dev, memory_budget, residency, execution, packing, Be, Bv)
+    key = (dev, memory_budget, host_memory_budget, residency, execution, packing, Be, Bv)
     session = slot["variants"].get(key)
     if session is None:
         session = GraphSession(
             graph,
             device=dev,
             memory_budget=memory_budget,
+            host_memory_budget=host_memory_budget,
             residency=residency,
             execution=execution,
             packing=packing,
@@ -1994,9 +2597,6 @@ def clear_session_cache() -> None:
     _SESSION_LRU.clear()
 
 
-def _check_axis(name: str, value: str, ported: tuple, later: tuple) -> None:
-    if value in ported:
-        return
-    if value in later:
-        raise NotImplementedError(_NOT_PORTED[value])
-    raise ValueError(f"{name} must be one of {ported + later}, got {value!r}")
+def _check_axis(name: str, value: str, allowed: tuple) -> None:
+    if value not in allowed:
+        raise ValueError(f"{name} must be one of {allowed}, got {value!r}")

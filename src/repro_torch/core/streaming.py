@@ -11,13 +11,18 @@ into one of two device slots allocated once, with events ordering the copy
 against the kernels that read the slot. On the CPU the same calls copy
 between CPU tensors, so a CPU run takes the same path and charges the same
 bytes.
+
+Under ``residency="disk"`` a unit is read from the ``.dsss`` file's mmap
+views each sweep: it is laid into one of two page-locked host buffers
+(:class:`HostSlots`) that are filled in turn, each reused only once the
+copy out of it has finished.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["layout", "host_buffer", "fill", "typed_views", "upload", "CopyRing"]
+__all__ = ["layout", "host_buffer", "fill", "typed_views", "upload", "HostSlots", "CopyRing"]
 
 
 def layout(arrays: dict) -> tuple[dict, int]:
@@ -78,6 +83,42 @@ def upload(src: torch.Tensor, device: torch.device, stream=None):
     return dst, done
 
 
+class HostSlots:
+    """Two host buffers, page-locked when ``pin``, that payloads fill in turn.
+
+    :meth:`take` hands out the next buffer, first waiting (on the host) for
+    the copy last queued out of it, and grows it when a payload is larger;
+    :meth:`copied` records the event that marks that copy's end. So a
+    payload is never overwritten while its copy may still read it.
+    """
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self.bufs: list = [None, None]
+        self.done: list = [None, None]
+        self.n = 0
+
+    def take(self, nbytes: int) -> tuple[int, torch.Tensor]:
+        """``(slot, uint8 buffer of nbytes)``: the next slot, free to fill."""
+        k = self.n % 2
+        self.n += 1
+        if self.done[k] is not None:
+            self.done[k].synchronize()
+            self.done[k] = None
+        buf = self.bufs[k]
+        if buf is None or buf.numel() < nbytes:
+            buf = self.bufs[k] = host_buffer(nbytes, self.pin)
+        return k, buf[:nbytes]
+
+    def copied(self, k: int, event) -> None:
+        """The copy out of slot ``k`` ends at ``event`` (``None``: already done)."""
+        self.done[k] = event
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.numel() for b in self.bufs if b is not None)
+
+
 class CopyRing:
     """Two device slots that the chunks of a stream take in turn.
 
@@ -108,15 +149,19 @@ class CopyRing:
             self.compute = torch.cuda.current_stream(self.device)
             self.stream.wait_stream(self.compute)
 
-    def put(self, c: int, src: torch.Tensor) -> None:
-        """Queue chunk ``c``'s copy from the host payload ``src`` into its slot."""
+    def put(self, c: int, src: torch.Tensor):
+        """Queue chunk ``c``'s copy from the host payload ``src`` into its slot.
+
+        Returns the event that marks the copy's end (``None`` off CUDA); it
+        is recorded again by chunk ``c + 2``'s copy, so wait on it before
+        queueing that one."""
         slot = self.slots[c % 2]
         n = src.numel()
         if n > self.nbytes:
             raise ValueError(f"a chunk of {n} bytes does not fit the ring's {self.nbytes}-byte slots")
         if not self.cuda:
             slot[:n].copy_(src)
-            return
+            return None
         if c >= 2:
             self.stream.wait_event(self.free[c % 2])
         torch.cuda.set_stream(self.stream)  # copy_ runs on the current stream
@@ -125,6 +170,7 @@ class CopyRing:
         finally:
             torch.cuda.set_stream(self.compute)
         self.ready[c % 2].record(self.stream)
+        return self.ready[c % 2]
 
     def take(self, c: int) -> torch.Tensor:
         """Chunk ``c``'s slot, once its copy is done (in stream order)."""

@@ -8,7 +8,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["EdgeList", "degree_and_densify"]
+__all__ = ["EdgeList", "degree_and_densify", "merge_unique_ids", "map_to_dense"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +84,48 @@ class EdgeList:
             id_to_index=self.id_to_index,
             weights=w2,
         )
+
+
+def _sorted_unique(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` by a sort and a drop of repeats.
+
+    ``np.unique`` without ``return_*`` takes a hash table from NumPy 2.3 on,
+    which is far slower than a sort on large arrays; the result is the same.
+    """
+    a = np.sort(a)
+    if a.size:
+        keep = np.ones(a.shape, dtype=bool)
+        keep[1:] = a[1:] != a[:-1]
+        a = a[keep]
+    return a
+
+
+def merge_unique_ids(acc: np.ndarray, *chunks: np.ndarray) -> np.ndarray:
+    """Fold edge-chunk endpoints into a sorted unique id array.
+
+    The chunked (external-memory) counterpart of the unique pass over all
+    endpoints in :func:`degree_and_densify`: called per streamed chunk, it
+    accumulates exactly the dense-id mapping of the one-shot pass, with
+    peak memory O(vertices + chunk).
+    """
+    parts = [np.asarray(acc, dtype=np.int64).reshape(-1)]
+    parts += [np.asarray(c, dtype=np.int64).reshape(-1) for c in chunks]
+    return _sorted_unique(np.concatenate(parts))
+
+
+def map_to_dense(id_to_index: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """Raw indices -> dense ids against a sorted mapping (validated).
+
+    :meth:`EdgeList.index_to_id` as a free function over an explicit
+    mapping, so the streaming build can map chunks before the
+    :class:`EdgeList` exists.
+    """
+    values = np.asarray(values, dtype=np.int64)
+    pos = np.searchsorted(id_to_index, values)
+    pos = np.clip(pos, 0, max(len(id_to_index) - 1, 0))
+    if len(id_to_index) == 0 or not np.all(id_to_index[pos] == values):
+        raise KeyError("index not present in the accumulated id mapping")
+    return pos.astype(np.int32)
 
 
 def degree_and_densify(

@@ -50,6 +50,7 @@ __all__ = [
     "prepare_packed_tiles",
     "run_index",
     "tile_ranges",
+    "range_from_leaves",
     "write_range",
     "range_views",
     "RangeSweep",
@@ -213,6 +214,12 @@ def chunk_table(run_start, run_end, run_tile, run_iv) -> np.ndarray:
     return np.ascontiguousarray(table, dtype=np.int32)
 
 
+def _writable(a: np.ndarray) -> np.ndarray:
+    """``a`` contiguous, copied where it is read-only (a ``.dsss`` file's mmap view)."""
+    a = np.ascontiguousarray(a)
+    return a if a.flags.writeable else a.copy()
+
+
 def prepare_packed_tiles(packed, *, has_weights: bool, device, index: dict | None = None) -> dict:
     """Upload the tile leaves and the run index.
 
@@ -227,10 +234,7 @@ def prepare_packed_tiles(packed, *, has_weights: bool, device, index: dict | Non
     if has_weights:
         leaves["weights"] = packed.weights
     leaves.update(run_index(packed) if index is None else index)
-    tiles = {
-        k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-        for k, v in leaves.items()
-    }
+    tiles = {k: torch.from_numpy(_writable(v)).to(device) for k, v in leaves.items()}
     tiles["interval_size"] = packed.interval_size
     return tiles
 
@@ -380,6 +384,94 @@ def tile_ranges(packed, bounds, *, index=None, run_tile: bool = False) -> list:
         )
         out.append((rng, arrays))
     return out
+
+
+def range_from_leaves(
+    leaves: dict, lo: int, *, interval_size: int, permuted: bool, run_tile: bool = False
+) -> tuple:
+    """Build kernel B1's operands of one tile range from that range's own leaves.
+
+    ``leaves`` holds the tiles' ``src``, ``dst``, ``run_local``, ``run_dst``
+    ``(k, T)`` and ``e_valid`` ``(k,)`` (and ``weights``), e.g. slices of a
+    ``.dsss`` file's mmap views; ``lo`` is the range's first tile in the
+    layout. Nothing of the rest of the layout is read: a tile's runs are its
+    ``run_local`` slots, and runs never cross tiles. ``permuted`` says
+    whether the layout's :func:`run_index` carries ``perm`` (its runs are
+    not contiguous somewhere); the range then ships its edge permutation.
+    Returns ``(TileRange, arrays)``, array for array what
+    :func:`tile_ranges` gives for ``[(lo, lo + k)]``.
+    """
+    src = leaves["src"]
+    k, T = src.shape
+    ev = np.asarray(leaves["e_valid"], dtype=np.int64)
+    E = int(ev.sum())
+
+    def valid(name, counts):  # the leaf's first counts[t] slots of each tile, back to back
+        return np.concatenate([np.asarray(leaves[name][t, : counts[t]]) for t in range(k)])
+
+    tile_start = np.concatenate([[0], np.cumsum(ev)])
+    rl = valid("run_local", ev).astype(np.int64)
+    u = np.zeros(k, np.int64)
+    if E:
+        nz = ev > 0
+        u[nz] = np.maximum.reduceat(rl, tile_start[:-1][nz]) + 1
+    run_base = np.concatenate([[0], np.cumsum(u)])
+    R = int(run_base[-1])
+    gid = rl + np.repeat(run_base[:-1], ev)
+    flat = np.arange(E) + np.repeat(np.arange(k) * T - tile_start[:-1], ev)
+    s_valid = valid("src", ev)
+    perm = None
+    if permuted:
+        order = np.argsort(gid, kind="stable")
+        gid, perm, s_valid = gid[order], flat[order], s_valid[order]
+    elif E and np.any(gid[1:] < gid[:-1]):
+        raise ValueError("the range's runs are not contiguous, but the layout has no perm")
+    starts = np.flatnonzero(np.concatenate([[True], gid[1:] != gid[:-1]])) if E else gid
+    if not np.array_equal(gid[starts], np.arange(R)):
+        raise ValueError("tile layout has run slots below u with no edges")
+    ends = np.concatenate([starts[1:], [E]])
+    iv_edge = s_valid // interval_size
+    run_iv = iv_edge[starts]
+    if np.any(iv_edge != np.repeat(run_iv, ends - starts)):
+        r = int(gid[np.flatnonzero(iv_edge != np.repeat(run_iv, ends - starts))[0]])
+        raise ValueError(f"run {r} of the range reads more than one source interval")
+    if perm is None:
+        run_start, run_end = flat[starts], flat[ends - 1] + 1
+    else:
+        run_start, run_end = starts, ends
+    tile_of_run = np.repeat(np.arange(k), u)
+    target = valid("run_dst", u)
+    order = np.argsort(target, kind="stable")
+    o_tgt = target[order]
+    groups = np.flatnonzero(np.concatenate([[True], o_tgt[1:] != o_tgt[:-1]])) if R else order
+    rows = chunk_table(run_start, run_end, tile_of_run, run_iv)
+    as32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
+    arrays = {
+        "chunks": rows,
+        "run_start": as32(run_start),
+        "fold_ptr": as32(np.append(groups, R)),
+        "fold_dst": as32(o_tgt[groups]),
+        "fold_runs": as32(order),
+    }
+    if perm is not None:
+        arrays["perm"] = as32(perm)
+    if run_tile:
+        arrays["run_tile"] = as32(tile_of_run)
+    arrays["src"] = src
+    arrays["dst"] = leaves["dst"]
+    if leaves.get("weights") is not None:
+        arrays["weights"] = leaves["weights"]
+    sections, offset = {}, 0
+    for name in RANGE_SECTIONS:
+        if name in arrays:
+            sections[name] = (offset, int(arrays[name].size))
+            offset += arrays[name].nbytes
+    rng = TileRange(
+        lo=int(lo), hi=int(lo) + k, tile_edges=T, interval_size=interval_size, runs=R,
+        chunk_rows=int(rows.shape[0]), touched=int(groups.shape[0]), sections=sections,
+        nbytes=offset,
+    )
+    return rng, arrays
 
 
 def write_range(buf: np.ndarray, rng: TileRange, arrays: dict) -> None:

@@ -346,9 +346,14 @@ def test_budget_under_auto_residency_is_not_ported(driver):
 
 
 def test_host_memory_budget_is_not_ported():
-    _, tg = _graphs("ring-P3")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    # Ported with the disk tier: keyed and forwarded, and an in-memory graph
+    # refuses the disk tier's RAM bound with the session's own error, as the
+    # JAX package's get_session does.
+    jg, tg = _graphs("ring-P3")
+    with pytest.raises(ValueError, match="host_memory_budget"):
         rt.get_session(tg, device="cpu", host_memory_budget=10_000)
+    with pytest.raises(ValueError, match="host_memory_budget"):
+        jc.get_session(jg, host_memory_budget=10_000)
 
 
 def test_drivers_default_to_the_card(monkeypatch):

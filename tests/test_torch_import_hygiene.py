@@ -32,6 +32,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "import repro_torch.launch.bench_packed, repro_torch.launch.b1_cases\n"
         "import repro_torch.core.algorithms, repro_torch.core.engine\n"
         "import repro_torch.core.baselines\n"
+        "import repro_torch.obs, repro_torch.obs.__main__, repro_torch.runtime.trace_analysis\n"
+        "import repro_torch.storage, repro_torch.storage.__main__, repro_torch.graph.io\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -175,27 +177,32 @@ def test_missing_nvcc_raises(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs,err",
     [
-        ({"residency": "disk", "memory_budget": 1000}, NotImplementedError),
-        ({"residency": "disk"}, NotImplementedError),
-        ({"execution": "packed", "residency": "disk"}, NotImplementedError),
-        ({"execution": "per_block", "residency": "disk"}, NotImplementedError),
+        # Disk residency is ported; it needs a session opened from a .dsss
+        # file, and an in-memory graph refuses it, as in the JAX package.
+        ({"residency": "disk", "memory_budget": 1000}, ValueError),
+        ({"residency": "disk"}, ValueError),
+        ({"execution": "packed", "residency": "disk"}, ValueError),
+        ({"execution": "per_block", "residency": "disk"}, ValueError),
         ({"residency": "nowhere"}, ValueError),
+        ({"fault_plan": object()}, NotImplementedError),
     ],
 )
 def test_unported_axes_raise(kwargs, err):
-    with pytest.raises(err, match="ROADMAP|must be one of"):
+    with pytest.raises(err, match="ROADMAP A10|must be one of|disk-backed session"):
         GraphSession(_tiny_graph(), device="cpu", **kwargs)
 
 
 def test_unported_plans_raise():
     g = _tiny_graph()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="disk-backed session"):
         GraphSession(g, device="cpu", memory_budget=1000).run(
             repro_torch.ExecutionPlan(BFS(), max_iters=4, residency="disk")
         )
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="disk-backed session"):
         GraphSession(g, device="cpu", memory_budget=1000).run(
             repro_torch.ExecutionPlan(BFS(), execution="packed", max_iters=4, residency="disk")
         )
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="host_memory_budget"):
         repro_torch.get_session(g, device="cpu", host_memory_budget=1000)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10, second part"):
+        repro_torch.ExecutionPlan(BFS(), checkpoint=object())

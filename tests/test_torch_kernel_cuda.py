@@ -710,6 +710,64 @@ def test_drivers_with_a_budget_stream_on_card(dev):
         np.testing.assert_array_equal(a.attrs, b.attrs)
 
 
+@pytest.mark.parametrize("execution", ["packed_kernel", "packed", "per_block"])
+@pytest.mark.parametrize("strategy", ["spu", "dpu", "mpu"])
+def test_disk_residency_on_card_bitwise_equals_device(strategy, execution, dev, tmp_path):
+    """Disk sessions on the card over a file written here: device residency's
+    bits and model meters, three times, with bytes_disk_read and bytes_h2d
+    equal to their closed forms (host residency's bytes_h2d under
+    packed_kernel) and one B1 launch per slab and chunk."""
+    from repro_torch.core import iomodel as tio
+    from repro_torch.storage import write_dsss
+
+    g = _graph("rmat", 8, True)
+    path = str(tmp_path / "g.dsss")
+    write_dsss(g, path)
+    pr = vp.PageRank()
+    budget = 2 * g.n_pad * pr.attr_bytes + g.m * 12 // 2
+    plans = [ExecutionPlan(pr, strategy=strategy, max_iters=8, tol=0.0)] + [
+        ExecutionPlan(vp.SSSP(), strategy=strategy, max_iters=g.n + 1, program_kwargs={"root": r})
+        for r in (0, 7)
+    ]
+    dev_sess = GraphSession(g, memory_budget=budget, residency="device", execution=execution)
+    host = GraphSession(g, memory_budget=budget, residency="host", execution=execution)
+    want_pr, want_h = dev_sess.run(plans[0]), host.run(plans[0])
+    want_sssp = dev_sess.run_batch(plans[1:])
+    for host_budget in (0, 1 << 18):
+        disk = GraphSession.open(
+            path, memory_budget=budget, host_memory_budget=host_budget, execution=execution
+        )
+        assert disk.resolved_residency() == "disk"
+        compiled = disk.compile(plans[0])
+        splan = disk.packed_stream_plan(compiled.choice.strategy, pr.attr_bytes)
+        if execution == "per_block":
+            nbytes = {k: session_mod._host_block_nbytes(h) for k, h in disk.host_blocks.items()}
+            read = tio.disk_read_bytes(nbytes, compiled.resident, compiled.host_cached)
+        else:
+            read = tio.packed_disk_bytes(
+                splan.num_tiles - splan.pin_tiles - splan.host_tiles, splan.tile_edges,
+                weighted=True,
+            )
+        for _ in range(3):
+            before = ps.launches
+            got = disk.run(plans[0])
+            torch.cuda.synchronize()
+            launched = ps.launches - before
+            np.testing.assert_array_equal(got.attrs.view(np.int32), want_pr.attrs.view(np.int32))
+            assert got.meters.model_dict() == want_pr.meters.model_dict()
+            assert got.meters.bytes_disk_read == read * got.iterations
+            assert got.meters.bytes_h2d == want_h.meters.bytes_h2d
+            if execution == "packed_kernel":
+                chunks = -(-(splan.num_tiles - splan.pin_tiles) // splan.chunk_tiles)
+                assert launched == got.iterations * (chunks + (splan.pin_tiles > 0))
+            else:
+                assert launched == 0
+            batch = disk.run_batch(plans[1:])
+            for a, b in zip(batch, want_sssp):
+                np.testing.assert_array_equal(a.attrs.view(np.int32), b.attrs.view(np.int32))
+            assert batch.meters.model_dict() == want_sssp.meters.model_dict()
+
+
 # ---------------------------------------------------------------------------
 # B3: flash attention
 # ---------------------------------------------------------------------------

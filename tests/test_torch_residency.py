@@ -418,13 +418,15 @@ def test_drivers_with_a_budget_run_host_residency(driver):
 
 
 def test_disk_residency_and_host_memory_budget_still_raise():
+    # Disk residency is ported (tests/test_torch_disk.py); over an in-memory
+    # graph it and host_memory_budget raise the JAX package's ValueError.
     _, g = _graphs("er")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="disk-backed session"):
         rt.GraphSession(g, device="cpu", residency="disk")
     sess = rt.GraphSession(g, device="cpu", memory_budget=1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="disk-backed session"):
         sess.run(rt.ExecutionPlan(rt.BFS(), max_iters=4, residency="disk"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="host_memory_budget"):
         rt.get_session(g, device="cpu", memory_budget=1000, host_memory_budget=10_000)
 
 
