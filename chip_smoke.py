@@ -151,7 +151,34 @@ The engine's surface above the session, on the main path's scale-22 graph
   sweep (``disk_read_bytes``). The external builder at R-MAT scale 18
   (``build_dsss_file`` over 2^20-edge chunks) against ``write_dsss`` of the
   same graph, byte for byte; the main path's SPU ms per sweep with the
-  registry on and off, twice each. The file is deleted at the end.
+  registry on and off, twice each. The file stays for the next two phases.
+- reliability (after disk_path): crash → snapshot → resume through B1.
+  Device residency, SPU PageRank, 10 sweeps, ``CheckpointSpec(every=2,
+  keep=2)`` under the checkout's ``build/``, an injected crash at sweep 7
+  (7 launches), the resume from sweep 6 (4 launches): attrs bitwise and
+  meters field-identical (wall excepted) to the main path's run; snapshot
+  bytes, save ms (``checkpoint`` spans) and restore ms. The same plan cut
+  to 6 sweeps, crash at 5, at host residency (budget A) and from the file
+  (``host_memory_budget`` 0), against their uninterrupted runs; the fused
+  8-root BFS batch crashed at 3 and resumed through ``run_batch``; host
+  residency under ``FaultPlan.h2d_transient(rate=0.03)`` (bits, meters and
+  B1 launches equal to the clean run's, ``fired("h2d")`` > 0, ms a sweep
+  with and without the plan); and ``GraphSession.open`` under a
+  ``ReadPolicy`` with a torn ``p_dst`` read that heals.
+- graph_serving (after reliability): a ``SessionPool`` holding the scale-22
+  graph at device residency (the main path's staged state) and
+  ``GraphServer(max_batch=8, max_wait_ms=2)``: 32 BFS requests from seeded
+  distinct roots and 8 PageRank requests, each bitwise equal to a solo
+  ``session.run``, each batch's ``split_meters`` shares recombining to its
+  meters, one B1 launch per fused sweep; qps, occupancy, p50/p99 latency.
+  In a batch of 8 personalized PageRank queries (200 sweeps), one request
+  whose deadline (the set-up and half the sweep loop of a traced solo run
+  of the batch) expires mid-run, at a sweep boundary, gets
+  ``DeadlineExceeded`` while its 7 batch-mates, re-run, stay bitwise;
+  ``multi_bfs(..., server=)`` equals the direct batch; the ``.dsss`` file
+  registered again at disk residency (budget A) serves the main path's 8
+  roots in one fused batch equal to the device batch. The file is deleted
+  at the end.
 - wcc_scc: ``wcc(el)`` and ``scc(el)`` on the scale-22 edge list: WCC
   labels equal the least vertex id of each of scipy's weak components, the
   SCC labels give scipy's strong partition; one B1 launch per sweep;
@@ -159,8 +186,8 @@ The engine's surface above the session, on the main path's scale-22 graph
   in sessions.
 
 Before the card's line, the ``kernels`` line gives each kernel's launches
-on its paths (B1: main path, drivers, wcc_scc, host_path and disk_path, by path in
-``launches_by_path``; on the host and disk paths one launch per pinned
+on its paths (B1: main path, drivers, wcc_scc, host_path, disk_path,
+reliability and graph_serving, by path in ``launches_by_path``; on the host and disk paths one launch per pinned
 slab and streamed chunk; ``host_path`` gives its launches and ms per sweep
 beside the pinned-copy bound, ``disk_path`` its launches and the cold and
 warm ms per sweep), time, plain time, bound and library time; B2's are the pass
@@ -1068,14 +1095,13 @@ def disk_split(disk, Ba) -> dict:
     return {**t, "chunks": len(stream.bounds)}
 
 
-def disk_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, ref, bfs, bfs_plans, smi) -> tuple[int, dict]:
+def disk_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, ref, bfs, bfs_plans, tmp, smi) -> tuple[int, dict]:
     """Disk residency at scale 22: the main path's graph written to a .dsss file
-    and streamed disk → host → device through B1's range launches."""
+    in ``tmp`` (the caller removes it) and streamed disk → host → device
+    through B1's range launches."""
     import dataclasses
     import filecmp
     import gc
-    import shutil
-    import tempfile
 
     from repro_torch.core import iomodel
     from repro_torch.core import session as session_mod
@@ -1085,202 +1111,503 @@ def disk_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, ref, bfs, bfs_plan
     from repro_torch.runtime import trace_analysis
     from repro_torch.storage import build_dsss_file, write_dsss
 
-    root = Path(__file__).resolve().parent / "build"
-    root.mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="disk_path-", dir=root)
-    try:
-        path = os.path.join(tmp, "g22.dsss")
-        t0 = time.perf_counter()
-        write_dsss(g, path)
-        write_s = time.perf_counter() - t0
-        file_bytes = os.path.getsize(path)
-        t0 = time.perf_counter()
-        core.GraphSession.open(path, verify=True, memory_budget=budget)
-        verify_s = time.perf_counter() - t0
-        gc.collect()
-        evict_page_cache(path)
-        emit("disk_file", bytes=file_bytes, write_s=write_s, open_verify_s=verify_s,
-             filesystem=mount_of(path))
+    path = os.path.join(tmp, "g22.dsss")
+    t0 = time.perf_counter()
+    write_dsss(g, path)
+    write_s = time.perf_counter() - t0
+    file_bytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    core.GraphSession.open(path, verify=True, memory_budget=budget)
+    verify_s = time.perf_counter() - t0
+    gc.collect()
+    evict_page_cache(path)
+    emit("disk_file", bytes=file_bytes, write_s=write_s, open_verify_s=verify_s,
+         filesystem=mount_of(path))
 
-        Ba = pr.attr_bytes
-        spu0 = sess.packed_stream_plan("spu", Ba)  # budget A: nothing pinned
-        leaf_tile = spu0.tile_edges * iomodel.PACKED_SLOT_BYTES + 4
-        half = (spu0.num_tiles - spu0.pin_tiles) // 2 * leaf_tile
-        configs = {"host0": 0, "half": half}
-        plan3 = {s: core.ExecutionPlan(pr, strategy=s, max_iters=DISK_SWEEPS, tol=0.0)
-                 for s in ("spu", "dpu", "mpu")}
-        want = {s: sess.run(p) for s, p in plan3.items()}  # device residency, same budget
-        torch.cuda.synchronize()
-        base_dev = torch.cuda.memory_allocated(dev)
+    Ba = pr.attr_bytes
+    spu0 = sess.packed_stream_plan("spu", Ba)  # budget A: nothing pinned
+    leaf_tile = spu0.tile_edges * iomodel.PACKED_SLOT_BYTES + 4
+    half = (spu0.num_tiles - spu0.pin_tiles) // 2 * leaf_tile
+    configs = {"host0": 0, "half": half}
+    plan3 = {s: core.ExecutionPlan(pr, strategy=s, max_iters=DISK_SWEEPS, tol=0.0)
+             for s in ("spu", "dpu", "mpu")}
+    want = {s: sess.run(p) for s, p in plan3.items()}  # device residency, same budget
+    torch.cuda.synchronize()
+    base_dev = torch.cuda.memory_allocated(dev)
 
-        ps.launches = 0  # every count to 0 just before the disk path
-        ps.pre_gathers = 0
-        dk.launches = 0
-        fa.launches = 0
-        out, disk = {}, None
-        for name, host_budget in configs.items():
-            del disk
-            gc.collect()
-            evict_page_cache(path)
-            mem0 = host_memory()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            disk = core.GraphSession.open(path, verify=False, memory_budget=budget,
-                                          host_memory_budget=host_budget)
-            for strategy, plan in plan3.items():
-                splan = disk.packed_stream_plan(strategy, Ba)
-                chunks = -(-(splan.num_tiles - splan.pin_tiles) // splan.chunk_tiles)
-                mark = TRACER.mark()
-                before = ps.launches
-                res = disk.run(dataclasses.replace(plan, trace=TraceSpec()))
-                torch.cuda.synchronize()
-                launched = ps.launches - before
-                sweeps_s = [s.dur for s in TRACER.spans(since=mark) if s.name == "sweep"]
-                it = res.meters.iterations
-                label = f"disk {name} {strategy}"
-                check(it == DISK_SWEEPS and len(sweeps_s) == it, f"{label}: {it} sweeps")
-                check(np.array_equal(res.attrs.view(np.int32), want[strategy].attrs.view(np.int32)),
-                      f"{label}: PageRank != device residency bitwise")
-                check(res.meters.model_dict() == want[strategy].meters.model_dict(),
-                      f"{label}: model meters != device residency's")
-                read = iomodel.packed_disk_bytes(splan.num_tiles - splan.pin_tiles - splan.host_tiles,
-                                                 splan.tile_edges, weighted=disk.has_weights)
-                check(res.meters.bytes_disk_read == it * read,
-                      f"{label}: bytes_disk_read {res.meters.bytes_disk_read} != {it} x {read}")
-                h2d = kernel_stream_bytes(core, sess, splan)  # host residency's closed form
-                check(res.meters.bytes_h2d == it * h2d,
-                      f"{label}: bytes_h2d {res.meters.bytes_h2d} != {it} x {h2d}")
-                check(launched == it * (chunks + (splan.pin_tiles > 0)),
-                      f"{label}: {launched} launches for {it} x {chunks} chunks")
-                out[f"{name}_{strategy}"] = {
-                    "host_tiles": splan.host_tiles, "chunks": chunks,
-                    "launches_per_sweep": launched / it,
-                    "cold_first_sweep_ms": 1e3 * sweeps_s[0],
-                    "warm_ms_per_sweep": 1e3 * float(np.mean(sweeps_s[1:])),
-                    "sweeps_ms": [1e3 * s for s in sweeps_s],
-                    "bytes_disk_read_per_sweep": read, "bytes_h2d_per_sweep": h2d,
-                    "warm_disk_gbps": read / float(np.mean(sweeps_s[1:])) / 1e9,
-                }
-            torch.cuda.synchronize()
-            mem1 = host_memory()
-            out[name] = {
-                "host_memory_budget": host_budget, "staged_host_bytes": disk.staged_host_bytes(),
-                "staging_slot_bytes": disk._disk_slots().nbytes,
-                "host_bytes_above_baseline": {k: mem1[k] - mem0.get(k, 0) for k in mem1},
-                "peak_device_bytes_above_baseline": torch.cuda.max_memory_allocated(dev) - base_dev,
-            }
-        pr_launches = ps.launches
-
-        # Registry deltas equal the meters, and the busy share, over a warm run.
-        kinds = ("h2d", "disk_read", "read_edges", "read_intervals", "read_hubs", "written_hubs",
-                 "written_intervals")
-        snap = {k: REGISTRY.value("repro_engine_bytes_total", kind=k) for k in kinds}
-        busy_res = []
-        busy = device_busy(lambda: busy_res.append(disk.run(plan3["dpu"])))
-        for k in kinds:
-            delta = REGISTRY.value("repro_engine_bytes_total", kind=k) - snap[k]
-            check(delta == getattr(busy_res[0].meters, "bytes_" + k), f"registry {k} delta != meters")
-        split = disk_split(disk, Ba)
-
-        # BFS K = 8 (selective) at budget A, nothing cached.
+    ps.launches = 0  # every count to 0 just before the disk path
+    ps.pre_gathers = 0
+    dk.launches = 0
+    fa.launches = 0
+    out, disk = {}, None
+    for name, host_budget in configs.items():
         del disk
         gc.collect()
         evict_page_cache(path)
-        disk = core.GraphSession.open(path, verify=False, memory_budget=budget, host_memory_budget=0)
-        before = ps.launches
-        trace_path = os.path.join(tmp, "bfs.json")
-        bb = disk.run_batch([dataclasses.replace(p, trace=TraceSpec(path=trace_path)) for p in bfs_plans])
+        mem0 = host_memory()
         torch.cuda.synchronize()
-        bfs_launches = ps.launches - before
-        check(bb.fused and bb.iterations == bfs.iterations, "disk BFS batch did not fuse or took other sweeps")
-        for a, b in zip(bb, bfs):
-            check(np.array_equal(a.attrs, b.attrs), "disk BFS batch != device batch")
-        check(bb.meters.model_dict() == bfs.meters.model_dict(), "disk BFS batch model meters differ")
-        strategy = disk.compile(bfs_plans[0]).choice.strategy
-        splan = disk.packed_stream_plan(strategy, bfs_plans[0].program.attr_bytes)
-        h2d = read = 0.0
-        for row in bb.activity_log:
-            active = None if row.all() else disk._packed_tile_activity(row)
-            h2d += kernel_stream_bytes(core, sess, splan, active)
-            tiles = (splan.num_tiles - splan.pin_tiles if active is None else
-                     iomodel.selective_streamed_tiles(active, splan.pin_tiles, splan.chunk_tiles))
-            read += iomodel.packed_disk_bytes(tiles, splan.tile_edges)
-        check(bb.meters.bytes_h2d == h2d and bb.meters.bytes_disk_read == read,
-              f"disk BFS bytes {bb.meters.bytes_h2d}/{bb.meters.bytes_disk_read} != {h2d}/{read}")
-        events = trace_analysis.load_events(trace_path)
-        (summary,) = trace_analysis.run_summaries(events)
-        check(summary["residency"] == "disk" and summary["sweeps"] == bb.iterations
-              and summary["bytes_h2d"] == bb.meters.bytes_h2d
-              and summary["bytes_disk_read"] == bb.meters.bytes_disk_read,
-              f"the traced disk run's sweep spans do not sum to the meters: {summary}")
-        bfs_sweeps_ms = [1e3 * e["dur"] for e in events if e["name"] == "sweep"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        disk = core.GraphSession.open(path, verify=False, memory_budget=budget,
+                                      host_memory_budget=host_budget)
+        for strategy, plan in plan3.items():
+            splan = disk.packed_stream_plan(strategy, Ba)
+            chunks = -(-(splan.num_tiles - splan.pin_tiles) // splan.chunk_tiles)
+            mark = TRACER.mark()
+            before = ps.launches
+            res = disk.run(dataclasses.replace(plan, trace=TraceSpec()))
+            torch.cuda.synchronize()
+            launched = ps.launches - before
+            sweeps_s = [s.dur for s in TRACER.spans(since=mark) if s.name == "sweep"]
+            it = res.meters.iterations
+            label = f"disk {name} {strategy}"
+            check(it == DISK_SWEEPS and len(sweeps_s) == it, f"{label}: {it} sweeps")
+            check(np.array_equal(res.attrs.view(np.int32), want[strategy].attrs.view(np.int32)),
+                  f"{label}: PageRank != device residency bitwise")
+            check(res.meters.model_dict() == want[strategy].meters.model_dict(),
+                  f"{label}: model meters != device residency's")
+            read = iomodel.packed_disk_bytes(splan.num_tiles - splan.pin_tiles - splan.host_tiles,
+                                             splan.tile_edges, weighted=disk.has_weights)
+            check(res.meters.bytes_disk_read == it * read,
+                  f"{label}: bytes_disk_read {res.meters.bytes_disk_read} != {it} x {read}")
+            h2d = kernel_stream_bytes(core, sess, splan)  # host residency's closed form
+            check(res.meters.bytes_h2d == it * h2d,
+                  f"{label}: bytes_h2d {res.meters.bytes_h2d} != {it} x {h2d}")
+            check(launched == it * (chunks + (splan.pin_tiles > 0)),
+                  f"{label}: {launched} launches for {it} x {chunks} chunks")
+            out[f"{name}_{strategy}"] = {
+                "host_tiles": splan.host_tiles, "chunks": chunks,
+                "launches_per_sweep": launched / it,
+                "cold_first_sweep_ms": 1e3 * sweeps_s[0],
+                "warm_ms_per_sweep": 1e3 * float(np.mean(sweeps_s[1:])),
+                "sweeps_ms": [1e3 * s for s in sweeps_s],
+                "bytes_disk_read_per_sweep": read, "bytes_h2d_per_sweep": h2d,
+                "warm_disk_gbps": read / float(np.mean(sweeps_s[1:])) / 1e9,
+            }
+        torch.cuda.synchronize()
+        mem1 = host_memory()
+        out[name] = {
+            "host_memory_budget": host_budget, "staged_host_bytes": disk.staged_host_bytes(),
+            "staging_slot_bytes": disk._disk_slots().nbytes,
+            "host_bytes_above_baseline": {k: mem1[k] - mem0.get(k, 0) for k in mem1},
+            "peak_device_bytes_above_baseline": torch.cuda.max_memory_allocated(dev) - base_dev,
+        }
+    pr_launches = ps.launches
 
-        # One per-block SPU sweep at budget A, nothing cached.
-        pbd = core.GraphSession.open(path, verify=False, memory_budget=budget, host_memory_budget=0,
-                                     execution="per_block")
-        p1 = core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0)
-        before = ps.launches
-        got, want1 = pbd.run(p1), pb.run(p1)
-        check(ps.launches == before, "the per-block disk sweep launched B1")
-        check(np.array_equal(got.attrs.view(np.int32), want1.attrs.view(np.int32)),
-              "disk per_block SPU != device per_block bitwise")
-        check(got.meters.model_dict() == want1.meters.model_dict(), "disk per_block meters differ")
-        compiled = pbd.compile(p1)
-        nbytes = {k: session_mod._host_block_nbytes(b) for k, b in pbd.host_blocks.items()}
-        read_pb = iomodel.disk_read_bytes(nbytes, compiled.resident, compiled.host_cached)
-        check(got.meters.bytes_disk_read == read_pb and got.meters.bytes_h2d == read_pb,
-              f"disk per_block bytes {got.meters.bytes_disk_read} != disk_read_bytes {read_pb}")
-        total = ps.launches  # just after the disk path
-        counts = {"packed_sweep": total, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
-        check(dk.launches == 0 and fa.launches == 0, f"the disk path launched another kernel: {counts}")
-        del disk, pbd
-        gc.collect()
+    # Registry deltas equal the meters, and the busy share, over a warm run.
+    kinds = ("h2d", "disk_read", "read_edges", "read_intervals", "read_hubs", "written_hubs",
+             "written_intervals")
+    snap = {k: REGISTRY.value("repro_engine_bytes_total", kind=k) for k in kinds}
+    busy_res = []
+    busy = device_busy(lambda: busy_res.append(disk.run(plan3["dpu"])))
+    for k in kinds:
+        delta = REGISTRY.value("repro_engine_bytes_total", kind=k) - snap[k]
+        check(delta == getattr(busy_res[0].meters, "bytes_" + k), f"registry {k} delta != meters")
+    split = disk_split(disk, Ba)
 
-        # The external builder at scale 18 against write_dsss of the same graph.
-        src, dst = rmat(18, edge_factor=16, seed=3)
+    # BFS K = 8 (selective) at budget A, nothing cached.
+    del disk
+    gc.collect()
+    evict_page_cache(path)
+    disk = core.GraphSession.open(path, verify=False, memory_budget=budget, host_memory_budget=0)
+    before = ps.launches
+    trace_path = os.path.join(tmp, "bfs.json")
+    bb = disk.run_batch([dataclasses.replace(p, trace=TraceSpec(path=trace_path)) for p in bfs_plans])
+    torch.cuda.synchronize()
+    bfs_launches = ps.launches - before
+    check(bb.fused and bb.iterations == bfs.iterations, "disk BFS batch did not fuse or took other sweeps")
+    for a, b in zip(bb, bfs):
+        check(np.array_equal(a.attrs, b.attrs), "disk BFS batch != device batch")
+    check(bb.meters.model_dict() == bfs.meters.model_dict(), "disk BFS batch model meters differ")
+    strategy = disk.compile(bfs_plans[0]).choice.strategy
+    splan = disk.packed_stream_plan(strategy, bfs_plans[0].program.attr_bytes)
+    h2d = read = 0.0
+    for row in bb.activity_log:
+        active = None if row.all() else disk._packed_tile_activity(row)
+        h2d += kernel_stream_bytes(core, sess, splan, active)
+        tiles = (splan.num_tiles - splan.pin_tiles if active is None else
+                 iomodel.selective_streamed_tiles(active, splan.pin_tiles, splan.chunk_tiles))
+        read += iomodel.packed_disk_bytes(tiles, splan.tile_edges)
+    check(bb.meters.bytes_h2d == h2d and bb.meters.bytes_disk_read == read,
+          f"disk BFS bytes {bb.meters.bytes_h2d}/{bb.meters.bytes_disk_read} != {h2d}/{read}")
+    events = trace_analysis.load_events(trace_path)
+    (summary,) = trace_analysis.run_summaries(events)
+    check(summary["residency"] == "disk" and summary["sweeps"] == bb.iterations
+          and summary["bytes_h2d"] == bb.meters.bytes_h2d
+          and summary["bytes_disk_read"] == bb.meters.bytes_disk_read,
+          f"the traced disk run's sweep spans do not sum to the meters: {summary}")
+    bfs_sweeps_ms = [1e3 * e["dur"] for e in events if e["name"] == "sweep"]
+
+    # One per-block SPU sweep at budget A, nothing cached.
+    pbd = core.GraphSession.open(path, verify=False, memory_budget=budget, host_memory_budget=0,
+                                 execution="per_block")
+    p1 = core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0)
+    before = ps.launches
+    got, want1 = pbd.run(p1), pb.run(p1)
+    check(ps.launches == before, "the per-block disk sweep launched B1")
+    check(np.array_equal(got.attrs.view(np.int32), want1.attrs.view(np.int32)),
+          "disk per_block SPU != device per_block bitwise")
+    check(got.meters.model_dict() == want1.meters.model_dict(), "disk per_block meters differ")
+    compiled = pbd.compile(p1)
+    nbytes = {k: session_mod._host_block_nbytes(b) for k, b in pbd.host_blocks.items()}
+    read_pb = iomodel.disk_read_bytes(nbytes, compiled.resident, compiled.host_cached)
+    check(got.meters.bytes_disk_read == read_pb and got.meters.bytes_h2d == read_pb,
+          f"disk per_block bytes {got.meters.bytes_disk_read} != disk_read_bytes {read_pb}")
+    total = ps.launches  # just after the disk path
+    counts = {"packed_sweep": total, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    check(dk.launches == 0 and fa.launches == 0, f"the disk path launched another kernel: {counts}")
+    del disk, pbd
+    gc.collect()
+
+    # The external builder at scale 18 against write_dsss of the same graph.
+    src, dst = rmat(18, edge_factor=16, seed=3)
+    t0 = time.perf_counter()
+    stats = build_dsss_file(
+        lambda: ((src[lo:lo + (1 << 20)], dst[lo:lo + (1 << 20)]) for lo in range(0, len(src), 1 << 20)),
+        os.path.join(tmp, "ext18.dsss"), 8, chunk_budget=64 << 20, drop_self_loops=True,
+    )
+    ext_s = time.perf_counter() - t0
+    write_dsss(core.build_dsss(degree_and_densify(src, dst, drop_self_loops=True), 8),
+               os.path.join(tmp, "mem18.dsss"))
+    same = filecmp.cmp(os.path.join(tmp, "ext18.dsss"), os.path.join(tmp, "mem18.dsss"), shallow=False)
+    check(same, "the external builder's scale-18 file != write_dsss of the same graph")
+
+    # Observability's cost on the device-residency main path (SPU, 10
+    # sweeps), registry on and off in turns, 10 pairs, alternating which
+    # side runs first.
+    obs_ms = {"on": [], "off": []}
+    p10 = core.ExecutionPlan(pr, strategy="spu", max_iters=10, tol=0.0)
+    for k in range(10):
+        for state in (("on", "off") if k % 2 == 0 else ("off", "on")):
+            REGISTRY.set_enabled(state == "on")
+            try:
+                r10 = sess.run(p10)
+            finally:
+                REGISTRY.set_enabled(True)
+            obs_ms[state].append(1e3 * r10.meters.wall_seconds / r10.meters.iterations)
+    obs_median = {k: float(np.median(v)) for k, v in obs_ms.items()}
+    emit(
+        "disk_path", launches=counts, pre_gathers=ps.pre_gathers, budget=budget,
+        configs=configs, pagerank=out, pagerank_launches=pr_launches,
+        device_busy_dpu_host0_warm=busy,
+        bfs_k8={"sweeps": bb.iterations, "launches": bfs_launches, "sweeps_ms": bfs_sweeps_ms,
+                "bytes_h2d": bb.meters.bytes_h2d, "bytes_disk_read": bb.meters.bytes_disk_read},
+        per_block_spu={"ms": 1e3 * got.meters.wall_seconds, "bytes_disk_read": read_pb},
+        external_build_18={"n": stats.n, "m": stats.m, "seconds": ext_s, "bytes_equal": same,
+                           "peak_edge_bytes": stats.peak_edge_bytes, "chunks": stats.num_chunks},
+        host_split_warm_dpu=split, obs_spu_ms_per_sweep=obs_ms, obs_spu_median_ms=obs_median,
+        nvidia_smi=smi,
+    )
+    host0 = out["host0_spu"]
+    return total, {"launches_per_sweep": host0["launches_per_sweep"],
+                   "warm_ms_per_sweep": host0["warm_ms_per_sweep"],
+                   "cold_first_sweep_ms": host0["cold_first_sweep_ms"]}
+
+
+def meters_but_wall(m) -> dict:
+    """A Meters as a dict, without the wall clock (the resume contract's fields)."""
+    import dataclasses
+
+    d = dataclasses.asdict(m)
+    d.pop("wall_seconds")
+    return d
+
+
+def expect_crash(run, crash_cls, what: str):
+    """Run ``run``; it must end in an injected crash."""
+    try:
+        run()
+    except crash_cls:
+        return
+    raise SystemExit(f"chip_smoke: check failed: {what}: no injected crash")
+
+
+def reliability(core, ps, dk, fa, dev, g, sess, pr, budget, runs, bfs, bfs_plans, path, tmp,
+                smi) -> tuple[int, dict]:
+    """Crash → snapshot → resume at scale 22 through B1 at device, host and disk
+    residency, the fused BFS batch, a transient H2D plan and a healing read."""
+    import dataclasses
+
+    from repro_torch.obs import TRACER, TraceSpec
+    from repro_torch.reliability import CheckpointSpec, FaultPlan, InjectedCrash, list_snapshots
+    from repro_torch.storage import ReadPolicy
+
+    snaps = os.path.join(tmp, "snaps")
+    p1 = core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0)
+    host = core.GraphSession(g, device=None, residency="host", memory_budget=budget, staged=sess._staged)
+    host.run(p1)  # the budget-A stream is staged already (host_path): pins, warms
+    disk = core.GraphSession.open(path, verify=False, memory_budget=budget, host_memory_budget=0)
+    splan = host.packed_stream_plan("spu", pr.attr_bytes)
+    slabs = -(-(splan.num_tiles - splan.pin_tiles) // splan.chunk_tiles) + (splan.pin_tiles > 0)
+    torch.cuda.synchronize()
+
+    ps.launches = 0  # every count to 0 just before the reliability path
+    dk.launches = 0
+    fa.launches = 0
+    out = {}
+    # Device residency: SPU PageRank, 10 sweeps, a snapshot every 2 (keep 2),
+    # a crash at sweep 7, then the resume from sweep 6.
+    ck = CheckpointSpec(os.path.join(snaps, "device"), every=2, keep=2)
+    plan = core.ExecutionPlan(pr, strategy="spu", max_iters=10, tol=0.0, checkpoint=ck)
+    sess.inject_faults(FaultPlan.crash_at_sweep(7))
+    mark = TRACER.mark()
+    before = ps.launches
+    expect_crash(lambda: sess.run(dataclasses.replace(plan, trace=TraceSpec())), InjectedCrash, "device")
+    torch.cuda.synchronize()
+    crashed = ps.launches - before
+    save_ms = [1e3 * sp.dur for sp in TRACER.spans(since=mark) if sp.name == "checkpoint"]
+    kept = [os.path.basename(x) for x in list_snapshots(ck.directory)]
+    check(kept == ["sweep_00000004.npz", "sweep_00000006.npz"], f"device snapshots {kept}")
+    latest = os.path.join(ck.directory, kept[-1])
+    snap_bytes = os.path.getsize(latest)
+    restore_ms = []
+    for _ in range(3):
         t0 = time.perf_counter()
-        stats = build_dsss_file(
-            lambda: ((src[lo:lo + (1 << 20)], dst[lo:lo + (1 << 20)]) for lo in range(0, len(src), 1 << 20)),
-            os.path.join(tmp, "ext18.dsss"), 8, chunk_budget=64 << 20, drop_self_loops=True,
-        )
-        ext_s = time.perf_counter() - t0
-        write_dsss(core.build_dsss(degree_and_densify(src, dst, drop_self_loops=True), 8),
-                   os.path.join(tmp, "mem18.dsss"))
-        same = filecmp.cmp(os.path.join(tmp, "ext18.dsss"), os.path.join(tmp, "mem18.dsss"), shallow=False)
-        check(same, "the external builder's scale-18 file != write_dsss of the same graph")
+        session_attrs = sess._restore_sweep_snapshot(latest, plan, 1, core.Meters())[0]
+        torch.cuda.synchronize()
+        restore_ms.append(1e3 * (time.perf_counter() - t0))
+    del session_attrs
+    before = ps.launches
+    res = sess.run(plan, resume_from=ck.directory)
+    torch.cuda.synchronize()
+    resumed = ps.launches - before
+    sess.inject_faults(None)
+    want = runs["spu"]
+    check(crashed == 7 and resumed == 4, f"device crash/resume launched {crashed} + {resumed} B1, want 7 + 4")
+    check(np.array_equal(res.attrs.view(np.int32), want.attrs.view(np.int32)),
+          "device resume != uninterrupted PageRank bitwise")
+    check(meters_but_wall(res.meters) == meters_but_wall(want.meters), "device resume meters differ")
+    out["device"] = {"launches_crashed": crashed, "launches_resumed": resumed, "snapshot_bytes": snap_bytes,
+                     "save_ms": save_ms, "restore_ms": restore_ms, "snapshots_kept": kept}
 
-        # Observability's cost on the device-residency main path (SPU, 10
-        # sweeps), registry on and off in turns, 10 pairs, alternating which
-        # side runs first.
-        obs_ms = {"on": [], "off": []}
-        p10 = core.ExecutionPlan(pr, strategy="spu", max_iters=10, tol=0.0)
-        for k in range(10):
-            for state in (("on", "off") if k % 2 == 0 else ("off", "on")):
-                REGISTRY.set_enabled(state == "on")
-                try:
-                    r10 = sess.run(p10)
-                finally:
-                    REGISTRY.set_enabled(True)
-                obs_ms[state].append(1e3 * r10.meters.wall_seconds / r10.meters.iterations)
-        obs_median = {k: float(np.median(v)) for k, v in obs_ms.items()}
-        emit(
-            "disk_path", launches=counts, pre_gathers=ps.pre_gathers, budget=budget,
-            configs=configs, pagerank=out, pagerank_launches=pr_launches,
-            device_busy_dpu_host0_warm=busy,
-            bfs_k8={"sweeps": bb.iterations, "launches": bfs_launches, "sweeps_ms": bfs_sweeps_ms,
-                    "bytes_h2d": bb.meters.bytes_h2d, "bytes_disk_read": bb.meters.bytes_disk_read},
-            per_block_spu={"ms": 1e3 * got.meters.wall_seconds, "bytes_disk_read": read_pb},
-            external_build_18={"n": stats.n, "m": stats.m, "seconds": ext_s, "bytes_equal": same,
-                               "peak_edge_bytes": stats.peak_edge_bytes, "chunks": stats.num_chunks},
-            host_split_warm_dpu=split, obs_spu_ms_per_sweep=obs_ms, obs_spu_median_ms=obs_median,
-            nvidia_smi=smi,
-        )
-        host0 = out["host0_spu"]
-        return total, {"launches_per_sweep": host0["launches_per_sweep"],
-                       "warm_ms_per_sweep": host0["warm_ms_per_sweep"],
-                       "cold_first_sweep_ms": host0["cold_first_sweep_ms"]}
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # Host (budget A) and disk (host_memory_budget 0): 6 sweeps, crash at 5.
+    p6 = core.ExecutionPlan(pr, strategy="spu", max_iters=6, tol=0.0)
+    for name, rs in (("host", host), ("disk", disk)):
+        ck6 = CheckpointSpec(os.path.join(snaps, name), every=2, keep=2)
+        t0 = time.perf_counter()
+        before = ps.launches
+        want6 = rs.run(p6)
+        torch.cuda.synchronize()
+        clean = ps.launches - before
+        clean_s = time.perf_counter() - t0
+        rs.inject_faults(FaultPlan.crash_at_sweep(5))
+        before = ps.launches
+        expect_crash(lambda: rs.run(dataclasses.replace(p6, checkpoint=ck6)), InjectedCrash, name)
+        crashed = ps.launches - before
+        before = ps.launches
+        got = rs.run(dataclasses.replace(p6, checkpoint=ck6), resume_from=True)
+        torch.cuda.synchronize()
+        resumed = ps.launches - before
+        rs.inject_faults(None)
+        check(clean == 6 * slabs and crashed == 5 * slabs and resumed == 2 * slabs,
+              f"{name}: B1 launches {clean}/{crashed}/{resumed} for {slabs} slabs a sweep")
+        check(np.array_equal(got.attrs.view(np.int32), want6.attrs.view(np.int32)),
+              f"{name} resume != uninterrupted bitwise")
+        check(meters_but_wall(got.meters) == meters_but_wall(want6.meters), f"{name} resume meters differ")
+        check(got.meters.bytes_h2d > 0 and (name == "host" or got.meters.bytes_disk_read > 0),
+              f"{name}: nothing streamed")
+        out[name] = {"launches": [clean, crashed, resumed], "ms_per_sweep_clean": 1e3 * clean_s / 6,
+                     "bytes_h2d": got.meters.bytes_h2d, "bytes_disk_read": got.meters.bytes_disk_read}
+
+    # The fused BFS batch (K = 8) at device residency: crash at 3, resume.
+    ckb = CheckpointSpec(os.path.join(snaps, "bfs"), every=2, keep=2)
+    bplans = [dataclasses.replace(p, checkpoint=ckb) for p in bfs_plans]
+    sess.inject_faults(FaultPlan.crash_at_sweep(3))
+    expect_crash(lambda: sess.run_batch(bplans), InjectedCrash, "bfs batch")
+    before = ps.launches
+    bb = sess.run_batch(bplans, resume_from=ckb.directory)
+    torch.cuda.synchronize()
+    bfs_resumed = ps.launches - before
+    sess.inject_faults(None)
+    check(bb.fused and bb.iterations == bfs.iterations and bfs_resumed == bfs.iterations - 2,
+          f"BFS resume: fused {bb.fused}, {bb.iterations} sweeps, {bfs_resumed} launches")
+    for a, b in zip(bb, bfs):
+        check(np.array_equal(a.attrs, b.attrs), "resumed BFS batch != the main path's batch")
+    check(meters_but_wall(bb.meters) == meters_but_wall(bfs.meters), "resumed BFS batch meters differ")
+    out["bfs_k8"] = {"sweeps": bb.iterations, "launches_resumed": bfs_resumed,
+                     "snapshot_bytes": os.path.getsize(list_snapshots(ckb.directory)[-1])}
+
+    # Host residency under a transient H2D plan: heals to the clean bits and bytes.
+    p3 = core.ExecutionPlan(pr, strategy="spu", max_iters=3, tol=0.0)
+    clean3 = host.run(p3)
+    host.inject_faults(FaultPlan.h2d_transient(rate=0.03, times=None, seed=21))
+    before = ps.launches
+    faulty = host.run(p3)
+    torch.cuda.synchronize()
+    fired = host.fault_injector.fired("h2d")
+    host.inject_faults(None)
+    check(ps.launches - before == 3 * slabs, "the transient plan changed B1's launches")
+    check(fired > 0, "the transient H2D plan never fired")
+    check(np.array_equal(faulty.attrs.view(np.int32), clean3.attrs.view(np.int32)),
+          "transient H2D plan: PageRank != clean bitwise")
+    check(meters_but_wall(faulty.meters) == meters_but_wall(clean3.meters)
+          and faulty.meters.bytes_h2d == clean3.meters.bytes_h2d, "transient H2D plan: meters differ")
+    out["h2d_transient"] = {
+        "rate": 0.03, "fired": fired, "chunks_per_sweep": slabs,
+        "ms_per_sweep_clean": 1e3 * clean3.meters.wall_seconds / 3,
+        "ms_per_sweep_with_plan": 1e3 * faulty.meters.wall_seconds / 3,
+        "bytes_h2d": faulty.meters.bytes_h2d,
+    }
+
+    # A disk session under a ReadPolicy, a torn p_dst read that clears.
+    t0 = time.perf_counter()
+    heal = core.GraphSession.open(
+        path, verify=False, memory_budget=budget, host_memory_budget=0,
+        read_policy=ReadPolicy(max_retries=3, backoff_s=0.0),
+        fault_plan=FaultPlan.storage_corrupt("p_dst", times=2),
+    )
+    healed = heal.run(p1)
+    heal_s = time.perf_counter() - t0
+    want1 = sess.run(p1)
+    check(heal.store.healed_reads > 0 and not heal.store.quarantined,
+          f"healing read: healed {heal.store.healed_reads}, quarantined {sorted(heal.store.quarantined)}")
+    check(np.array_equal(healed.attrs.view(np.int32), want1.attrs.view(np.int32)), "healed disk sweep != device")
+    out["healing_read"] = {"healed_reads": heal.store.healed_reads, "open_and_one_sweep_s": heal_s}
+    total = ps.launches  # just after the reliability path
+    counts = {"packed_sweep": total, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    check(dk.launches == 0 and fa.launches == 0, f"the reliability path launched another kernel: {counts}")
+    del host, disk, heal
+    emit("reliability", launches=counts, slabs_per_streamed_sweep=slabs, **out, nvidia_smi=smi)
+    return total, {"device_launches": [out["device"]["launches_crashed"], out["device"]["launches_resumed"]],
+                   "snapshot_bytes": snap_bytes, "save_ms": float(np.median(save_ms)),
+                   "restore_ms": float(np.median(restore_ms))}
+
+
+def graph_serving(core, ps, dk, fa, g, sess, pr, budget, bfs, bfs_plans, path, smi) -> tuple[int, dict]:
+    """The micro-batching GraphServer over a SessionPool at scale 22: served
+    results bitwise equal to solo runs, meter shares, a deadline cut at a sweep
+    boundary, the drivers' server=, and the .dsss file served from disk."""
+    import asyncio
+    import dataclasses
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.vertex_programs import BFS
+    from repro_torch.obs import TRACER, TraceSpec
+    from repro_torch.serving import DeadlineExceeded, GraphServer, QueryRequest, SessionPool
+
+    pool = SessionPool()
+    # The main path's staged graph: the pool's session stages nothing anew.
+    pool.register("g22", g, residency="device", memory_budget=budget, staged=sess._staged)
+    solo = pool.session("g22")
+    rng = np.random.default_rng(1)
+    roots = rng.choice(np.flatnonzero(g.out_degree[: g.n] > 0), size=32, replace=False)
+    bplans = [core.ExecutionPlan(BFS(), max_iters=g.n + 1, program_kwargs={"root": int(r)}) for r in roots]
+    prplan = core.ExecutionPlan(pr, strategy="spu", max_iters=10, tol=0.0)
+    solo.run(core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0))  # warm
+    torch.cuda.synchronize()
+
+    ps.launches = 0  # every count to 0 just before the serving path
+    dk.launches = 0
+    fa.launches = 0
+    server = GraphServer(pool, max_batch=8, max_wait_ms=2.0)
+    reqs = [QueryRequest("g22", p) for p in bplans] + [QueryRequest("g22", prplan) for _ in range(8)]
+    t0 = time.perf_counter()
+    before = ps.launches
+    served = server.serve(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = ps.launches - before
+    st = server.stats()
+    batches = {}
+    for q in served:
+        batches.setdefault(id(q.result.meters), []).append(q)
+    sweeps = sum(qs[0].result.meters.iterations for qs in batches.values())
+    check(st.completed == 40 and st.fused_batches == st.batches == 5 and st.mean_occupancy == 8.0,
+          f"serving: {st.completed} done in {st.batches} batches ({st.fused_batches} fused)")
+    check(serve_launches == sweeps, f"serving: {serve_launches} B1 launches over {sweeps} fused sweeps")
+    for qs in batches.values():  # the shares recombine to each batch's meters
+        merged = core.Meters()
+        for q in qs:
+            merged.merge(q.meters)
+        whole = qs[0].result.meters
+        check(meters_but_wall(merged) == meters_but_wall(whole)
+              and abs(merged.wall_seconds - whole.wall_seconds) <= 1e-9 * max(whole.wall_seconds, 1.0),
+              "split_meters shares do not recombine to the batch's meters")
+    solo_res = [solo.run(p) for p in bplans]
+    pr_solo = solo.run(prplan)
+    for q, want in zip(served, solo_res + [pr_solo] * 8):
+        check(np.array_equal(q.result.attrs.view(np.int32), want.attrs.view(np.int32))
+              and q.result.iterations == want.iterations, "a served result != its solo run bitwise")
+
+    # A deadline that expires mid-run, at a sweep boundary: 8 personalized
+    # PageRank queries of 200 sweeps (a loop of about a second, so the cut
+    # lands well inside it whatever the host's jitter). The second of two
+    # traced solo runs of the batch (warm, as the served one is) gives the
+    # set-up before the sweep loop and the loop; the deadline is the
+    # set-up, the batching window and half the loop.
+    ppr = [core.ExecutionPlan(pr, strategy="spu", max_iters=200, tol=0.0,
+                              program_kwargs={"personalize": int(r)}) for r in roots[:8]]
+    for _ in range(2):
+        mark = TRACER.mark()
+        t1 = time.perf_counter()
+        solo.run_batch([dataclasses.replace(p, trace=TraceSpec()) for p in ppr])
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t1
+    (run_span,) = [sp for sp in TRACER.spans(since=mark) if sp.name == "run"]
+    setup_s, loop_s = run_span.ts - t1, run_span.dur
+    deadline = setup_s + 2e-3 + loop_s / 2
+
+    async def with_deadline():
+        async with GraphServer(pool, max_batch=8, max_wait_ms=2.0) as srv:
+            futs = [await srv.submit(QueryRequest("g22", p, deadline_s=deadline if i == 0 else None))
+                    for i, p in enumerate(ppr)]
+            got = await asyncio.gather(*futs, return_exceptions=True)
+            return got, srv.stats()
+
+    before = ps.launches
+    got, dst = asyncio.run(with_deadline())
+    torch.cuda.synchronize()
+    deadline_launches = ps.launches - before
+    check(isinstance(got[0], DeadlineExceeded) and dst.timeouts == 1 and dst.failed == 0,
+          f"deadline: {type(got[0]).__name__}, timeouts {dst.timeouts}")
+    # Cut mid-run: the cancelled attempt's sweeps came before the 7 survivors' run.
+    rerun = got[1].result.meters.iterations
+    check(deadline_launches > rerun, f"deadline: {deadline_launches} launches, no partial run before "
+          f"the survivors' {rerun} sweeps (shed in the queue, not cut at a sweep boundary)")
+    for q, p in zip(got[1:], ppr[1:]):
+        check(not isinstance(q, Exception) and q.fused and q.batch_size == 7
+              and np.array_equal(q.result.attrs.view(np.int32), solo.run(p).attrs.view(np.int32)),
+              "a batch-mate of the cancelled request != its solo run")
+
+    # The drivers' server=: multi_bfs through a server equals the direct batch.
+    direct = alg.multi_bfs(g, roots[:8], P=g.P, memory_budget=budget, residency="device")
+    via = alg.multi_bfs(g, roots[:8], P=g.P, memory_budget=budget, residency="device",
+                        server=GraphServer(max_batch=8, max_wait_ms=2.0))
+    check(via.fused and all(np.array_equal(a.attrs, b.attrs) for a, b in zip(direct, via)),
+          "multi_bfs(server=) != multi_bfs")
+
+    # The .dsss file registered again, at disk residency (budget A, nothing
+    # cached): the main path's 8 roots in one fused batch.
+    pool.register("g22_disk", path, memory_budget=budget, host_memory_budget=0, verify=False)
+    before = ps.launches
+    t1 = time.perf_counter()
+    disk_served = GraphServer(pool, max_batch=8, max_wait_ms=2.0).serve(
+        [QueryRequest("g22_disk", p) for p in bfs_plans])
+    torch.cuda.synchronize()
+    disk_s = time.perf_counter() - t1
+    disk_launches = ps.launches - before
+    check(pool.session("g22_disk").resolved_residency() == "disk", "the file did not open at disk residency")
+    check(all(q.fused and q.batch_size == 8 for q in disk_served), "disk requests did not fuse into one batch")
+    for q, want in zip(disk_served, bfs):
+        check(np.array_equal(q.result.attrs, want.attrs), "disk-served BFS != device batch")
+    total = ps.launches  # just after the serving path
+    counts = {"packed_sweep": total, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    check(dk.launches == 0 and fa.launches == 0, f"the serving path launched another kernel: {counts}")
+    out = {
+        "requests": 40, "batches": st.batches, "mean_occupancy": st.mean_occupancy, "qps": st.qps,
+        "serve_s": serve_s, "p50_total_s": st.p50_total_s, "p99_total_s": st.p99_total_s,
+        "mean_queue_s": st.mean_queue_s, "mean_run_s": st.mean_run_s, "max_total_s": st.max_total_s,
+        "fused_sweeps": sweeps, "launches_served": serve_launches,
+        "launches_per_fused_sweep": serve_launches / sweeps,
+        "deadline_s": deadline, "solo_batch_s": batch_s, "solo_setup_s": setup_s, "solo_loop_s": loop_s,
+        "deadline_launches": deadline_launches,
+        "deadline_cut_after_sweeps": deadline_launches - rerun,
+        "disk": {"sweeps": disk_served[0].result.meters.iterations, "launches": disk_launches,
+                 "seconds": disk_s, "bytes_disk_read": disk_served[0].result.meters.bytes_disk_read},
+    }
+    emit("graph_serving", launches=counts, **out, nvidia_smi=smi)
+    return total, {"launches_per_fused_sweep": out["launches_per_fused_sweep"], "qps": st.qps,
+                   "mean_occupancy": st.mean_occupancy, "p50_total_s": st.p50_total_s,
+                   "p99_total_s": st.p99_total_s}
 
 
 def main() -> None:
@@ -1678,7 +2005,7 @@ def main() -> None:
     s18 = {layout: core.GraphSession(core.build_dsss(el18, 8, src_sorted=layout == "src_sorted"))
            for layout in ("src_sorted", "dst_sorted")}
     plan18 = core.ExecutionPlan(pr, strategy="spu", max_iters=10, tol=0.0)
-    check(s18["src_sorted"].resolved_execution("spu") == "packed_kernel", "auto is not the kernel")
+    check(s18["src_sorted"].resolved_execution("spu", "device") == "packed_kernel", "auto is not the kernel")
     for s_ in s18.values():
         s_.run(core.ExecutionPlan(pr, strategy="spu", max_iters=1, tol=0.0))  # stage, warm
     torch.cuda.synchronize()
@@ -1881,8 +2208,24 @@ def main() -> None:
     tile_bytes = sum(t.numel() * t.element_size() for t in tiles.values() if torch.is_tensor(t))
     host_launches, host_b1 = host_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, runs, ref, bfs,
                                        bfs_plans, roots, tile_bytes, smi)
-    disk_launches, disk_b1 = disk_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, ref, bfs, bfs_plans,
-                                       smi)
+    # The disk, reliability and serving paths share one .dsss file of the
+    # scale-22 graph, written under the checkout's build/ and removed after.
+    import shutil
+    import tempfile
+
+    build_root = Path(__file__).resolve().parent / "build"
+    build_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="disk_path-", dir=build_root)
+    try:
+        disk_launches, disk_b1 = disk_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, ref, bfs,
+                                           bfs_plans, tmp, smi)
+        g22_path = os.path.join(tmp, "g22.dsss")
+        rel_launches, rel_b1 = reliability(core, ps, dk, fa, dev, g, sess, pr, budget, runs, bfs, bfs_plans,
+                                           g22_path, tmp, smi)
+        gs_launches, gs_b1 = graph_serving(core, ps, dk, fa, g, sess, pr, budget, bfs, bfs_plans, g22_path,
+                                           smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # -- phase 7: one PageRank sweep from the sub-shard kernel -----------------
     # Twice: through the pass entry (one launch per phase for all sub-shards)
@@ -2039,12 +2382,16 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/packed_sweep.cu",
         "replaces": "src/repro/kernels/packed_sweep.py:86",
-        "launches": main_launches + driver_launches + ws_launches + host_launches + disk_launches,
+        "launches": (main_launches + driver_launches + ws_launches + host_launches + disk_launches
+                     + rel_launches + gs_launches),
         "launches_by_path": {"main_path": main_launches, "packed_scan_path": 0,
                              "drivers": driver_launches, "wcc_scc": ws_launches,
-                             "host_path": host_launches, "disk_path": disk_launches},
+                             "host_path": host_launches, "disk_path": disk_launches,
+                             "reliability": rel_launches, "graph_serving": gs_launches},
         "host_path": host_b1,
         "disk_path": disk_b1,
+        "reliability": rel_b1,
+        "graph_serving": gs_b1,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

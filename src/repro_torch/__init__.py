@@ -26,7 +26,11 @@ drivers (``pagerank``, ``bfs``, ``wcc``, ``sssp``, ``scc``, ``multi_bfs``,
 builder and CLI (``repro_torch.storage``), the graph text I/O
 (``repro_torch.graph.io``), and observability (``repro_torch.obs``: the
 metrics registry, the span tracer, the scrape endpoint;
-``ExecutionPlan(trace=TraceSpec(...))``).
+``ExecutionPlan(trace=TraceSpec(...))``). Reliability
+(``repro_torch.reliability``: fault plans, sweep snapshots and resume,
+``ExecutionPlan(checkpoint=CheckpointSpec(...))``, self-healing reads and
+repair) and graph serving (``repro_torch.serving``: the session pool and
+the micro-batching ``GraphServer``).
 """
 from repro_torch.core import (
     BFS,
@@ -35,6 +39,7 @@ from repro_torch.core import (
     SSSP,
     WCC,
     BatchResult,
+    CheckpointSpec,
     DSSSGraph,
     ExecutionPlan,
     GraphSession,
@@ -66,6 +71,7 @@ __all__ = [
     "GraphSession",
     "ExecutionPlan",
     "TraceSpec",
+    "CheckpointSpec",
     "BatchResult",
     "Result",
     "Meters",

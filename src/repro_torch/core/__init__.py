@@ -12,7 +12,7 @@
 - :mod:`repro_torch.core.iomodel` — Table II I/O closed forms + adaptive selection
 - :mod:`repro_torch.core.identities` — the ⊕-identity families
 """
-from repro_torch.core.dsss import DSSSGraph, PackedSweep, build_dsss
+from repro_torch.core.dsss import DSSSGraph, PackedSweep, SubShard, build_dsss
 from repro_torch.core.iomodel import (
     IOComparison,
     IOParams,
@@ -25,12 +25,12 @@ from repro_torch.core.iomodel import (
     mpu_io,
     mpu_q,
     packed_disk_bytes,
+    packed_h2d_bytes,
     select_strategy,
     spu_io,
     turbograph_like_io,
 )
-from repro_torch.core.plan import ExecutionPlan
-from repro_torch.obs.trace import TraceSpec
+from repro_torch.core.plan import CheckpointSpec, ExecutionPlan, TraceSpec
 from repro_torch.core.session import (
     MODEL_METER_FIELDS,
     BatchResult,
@@ -64,9 +64,11 @@ from repro_torch.core.algorithms import (
 __all__ = [
     "DSSSGraph",
     "PackedSweep",
+    "SubShard",
     "build_dsss",
     "GraphSession",
     "ExecutionPlan",
+    "CheckpointSpec",
     "TraceSpec",
     "BatchResult",
     "get_session",
@@ -89,6 +91,7 @@ __all__ = [
     "calibrate_edge_bytes",
     "disk_read_bytes",
     "packed_disk_bytes",
+    "packed_h2d_bytes",
     "VertexProgram",
     "PageRank",
     "BFS",

@@ -13,8 +13,10 @@ Every driver runs on the CUDA card unless ``device="cpu"`` is passed. A
 ``memory_budget`` under the default ``residency="auto"`` means host
 residency: the budget is enforced and the edge topology it does not pin
 streams from host memory every sweep (``residency="device"`` keeps the
-budget a modelled one). Routing K sources through a graph server
-(``server=``) is not ported yet.
+budget a modelled one). ``multi_bfs``/``multi_sssp`` with ``server=`` (a
+:class:`repro_torch.serving.GraphServer`) submit the K sources as point
+queries to the server's micro-batcher, which fuses them back onto
+``run_batch``.
 """
 from __future__ import annotations
 
@@ -48,11 +50,6 @@ Device = str | torch.device | None
 # Sharded graphs by edge-list identity and P, so repeated driver calls on
 # one EdgeList reach one DSSSGraph object, and so one cached session.
 _DSSS_LRU = IdentityLRU(size=8)
-
-_NO_SERVER = (
-    "server= (routing queries through the graph server's micro-batcher) "
-    "is not ported yet (ROADMAP A11)"
-)
 
 
 def _as_graph(g: EdgeList | DSSSGraph, P: int) -> DSSSGraph:
@@ -120,8 +117,6 @@ def bfs(
 
 
 def _multi(program, g, sources, P, strategy, memory_budget, residency, execution, server, device):
-    if server is not None:
-        raise NotImplementedError(_NO_SERVER)
     sess = _session(g, P, memory_budget, residency, execution, device)
     plans = [
         ExecutionPlan(
@@ -132,6 +127,13 @@ def _multi(program, g, sources, P, strategy, memory_budget, residency, execution
         )
         for r in sources
     ]
+    if server is not None:
+        # The server's pool opens its own session with the same axes and
+        # device (it never picks the device itself).
+        return server.serve_plans(
+            sess.graph, plans, memory_budget=memory_budget, residency=residency,
+            execution=execution, device=device,
+        )
     return sess.run_batch(plans)
 
 
@@ -151,7 +153,10 @@ def multi_bfs(
 
     The K depth frontiers advance together: each sweep reads the edges once
     (``meters.bytes_read_edges`` is one query's cost, not K×) and updates
-    K attribute rows.
+    K attribute rows. With ``server=`` (a
+    :class:`repro_torch.serving.GraphServer`) the K sources go through the
+    server's queue and micro-batcher instead, and come back in the same
+    ``BatchResult`` shape with identical per-query results.
     """
     return _multi(BFS(), g, sources, P, strategy, memory_budget, residency,
                   execution, server, device)
@@ -239,7 +244,11 @@ def multi_sssp(
     server=None,
     device: Device = None,
 ) -> BatchResult:
-    """Shortest paths from K sources in one batched sweep sequence."""
+    """Shortest paths from K sources in one batched sweep sequence.
+
+    ``server=`` routes the K sources through the serving micro-batcher
+    (see :func:`multi_bfs`).
+    """
     return _multi(SSSP(), g, sources, P, strategy, memory_budget, residency,
                   execution, server, device)
 

@@ -163,20 +163,17 @@ class NXGraphEngine:
     ) -> Result:
         """Forward to ``session.run``.
 
-        ``checkpoint``, ``resume_from`` and ``cancel`` belong to the
-        reliability layer, not ported yet: any of them but ``None`` raises.
+        ``checkpoint`` (a :class:`repro_torch.reliability.CheckpointSpec`),
+        ``resume_from`` and ``cancel`` pass straight through to the
+        session's reliability machinery: see :meth:`GraphSession.run`.
         """
-        if checkpoint is not None or resume_from is not None or cancel is not None:
-            raise NotImplementedError(
-                "checkpoint=, resume_from= and cancel= (sweep snapshots and "
-                "cancellation) are not ported yet (ROADMAP A10, second part: reliability)"
-            )
         plan = ExecutionPlan(
             self.program,
             strategy=self._strategy,
             max_iters=max_iters,
             tol=tol,
             execution=self._execution,
+            checkpoint=checkpoint,
             program_kwargs=program_kwargs,
         )
-        return self.session.run(plan)
+        return self.session.run(plan, resume_from=resume_from, cancel=cancel)

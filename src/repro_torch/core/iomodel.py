@@ -66,13 +66,20 @@ def mpu_q(p: IOParams, B_M: int) -> int:
     return max(0, min(p.P, int(B_M // per_interval)))
 
 
-def mpu_io(p: IOParams, B_M: int) -> tuple[float, float]:
+def mpu_io(p: IOParams, B_M: int, *, continuous: bool = False) -> tuple[float, float]:
     """MPU: Q=P is SPU-like, Q=0 is DPU.
 
     read  = m·Be + ((P−Q)/P)·n·Ba + ((P−Q)²/P²)·m·(Ba+Bv)/d
     write =        ((P−Q)/P)·n·Ba + ((P−Q)²/P²)·m·(Ba+Bv)/d
+
+    ``continuous=True`` uses the unquantized Q = (B_M/2n·Ba)·P that the
+    paper's Fig. 6 comparison assumes (the large-P limit); with integer Q
+    and small P, MPU quantizes down to DPU.
     """
-    cold = (p.P - mpu_q(p, B_M)) / p.P
+    if continuous:
+        cold = 1.0 - min(1.0, B_M / max(2 * p.n * p.Ba, 1))
+    else:
+        cold = (p.P - mpu_q(p, B_M)) / p.P
     hub = cold * cold * p.m * (p.Ba + p.Bv) / p.d
     iv = cold * p.n * p.Ba
     return float(p.m * p.Be + iv + hub), float(iv + hub)

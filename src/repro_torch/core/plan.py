@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.core.vertex_programs import VertexProgram
 from repro_torch.obs.trace import TraceSpec
+from repro_torch.reliability.checkpoint import CheckpointSpec
 
-__all__ = ["ExecutionPlan", "FrozenArray"]
+__all__ = ["CheckpointSpec", "ExecutionPlan", "FrozenArray", "TraceSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,9 +80,14 @@ class ExecutionPlan:
       activity: ``"auto"`` lets monotone programs skip tiles whose source
         intervals did not change; ``"off"`` forces full sweeps. Results
         are bit-identical either way.
-      checkpoint: sweep-level snapshots belong to ROADMAP A10's second
-        part (reliability); anything but ``None`` raises
-        :class:`NotImplementedError`.
+      checkpoint: sweep-level checkpoint/resume
+        (:class:`repro_torch.reliability.CheckpointSpec`): ``None`` takes
+        no snapshots; otherwise the session atomically snapshots the
+        vertex state, activity bitmaps and cumulative meters to
+        ``checkpoint.directory`` every ``checkpoint.every`` sweeps
+        (keep-N pruned), and ``session.run(plan, resume_from=...)``
+        restores one and continues, bit-identical to an uninterrupted
+        run. Part of :meth:`batch_key`.
       trace: a :class:`repro_torch.obs.TraceSpec` turns the span recorder
         on for this run (staging, each sweep with its byte deltas, the
         run) and, with ``trace.path``, exports its spans as Chrome
@@ -98,15 +104,17 @@ class ExecutionPlan:
     residency: str | None = None
     execution: str | None = None
     activity: str = "auto"
-    checkpoint: Any = None
+    checkpoint: CheckpointSpec | None = None
     trace: TraceSpec | None = None
     program_kwargs: Any = ()
 
     def __post_init__(self):
-        if self.checkpoint is not None:
-            raise NotImplementedError(
-                "ExecutionPlan.checkpoint is not ported yet "
-                "(ROADMAP A10, second part: reliability)"
+        if self.checkpoint is not None and not isinstance(
+            self.checkpoint, CheckpointSpec
+        ):
+            raise TypeError(
+                "checkpoint must be a repro_torch.reliability.CheckpointSpec or "
+                f"None, got {type(self.checkpoint).__name__}"
             )
         if self.trace is not None and not isinstance(self.trace, TraceSpec):
             raise TypeError(
@@ -159,8 +167,10 @@ class ExecutionPlan:
     def batch_key(self) -> tuple:
         """Plans sharing a batch_key may fuse into one sweep sequence.
 
-        Program, strategy, limits and the residency/execution/activity axes
-        must agree; Initialize kwargs and the trace spec may differ. ``run_batch`` also needs
+        Program, strategy, limits, the residency/execution/activity axes
+        and the checkpoint spec must agree (the serving micro-batcher
+        buckets requests by ``(graph, batch_key())``); Initialize kwargs
+        and the trace spec may differ. ``run_batch`` also needs
         the plans' aux to be identical or stackable.
         """
         return (
@@ -171,6 +181,7 @@ class ExecutionPlan:
             self.residency,
             self.execution,
             self.activity,
+            self.checkpoint,
         )
 
     def compatible_with(self, other: "ExecutionPlan") -> bool:

@@ -72,15 +72,21 @@ Observability (:mod:`repro_torch.obs`): the byte counters
 read, the model kinds once a sweep), and a plan's ``trace`` records
 staging, sweep and run spans.
 
-Not ported yet, and refused with :class:`NotImplementedError` naming the
-ROADMAP item: fault injection (``fault_plan=``), sweep snapshots and the
-transient-fault retries of the JAX package's copies (A10, second part): a
-failed copy or launch raises.
+Reliability (:mod:`repro_torch.reliability`): a :class:`FaultPlan`
+(``fault_plan=`` or :meth:`GraphSession.inject_faults`) fires at the sweep
+boundary (crashes), at each host→device copy of streamed topology
+(transient faults, retried in place by ``with_transient_retries``; labels
+``"chunk:lo"`` and ``"block:i,j"``, the JAX package's) and in the store's
+checksum reads. A plan's ``checkpoint`` snapshots the loop state every
+``every`` sweeps, and ``run(..., resume_from=)`` continues from one, with
+the bits and meters of an uninterrupted run; ``cancel`` is called before
+each sweep (the graph server's deadlines).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import time
 import weakref
 from collections import OrderedDict
@@ -117,6 +123,13 @@ from repro_torch.kernels.packed_sweep import (
 )
 from repro_torch.obs.registry import REGISTRY as _REGISTRY
 from repro_torch.obs.trace import TRACER as _TRACER
+from repro_torch.reliability.checkpoint import (
+    SnapshotError,
+    latest_snapshot,
+    load_snapshot,
+    save_snapshot,
+)
+from repro_torch.reliability.faults import FaultPlan, with_transient_retries
 
 __all__ = [
     "GraphSession",
@@ -144,11 +157,6 @@ MODEL_METER_FIELDS = (
     "blocks_skipped",
     "edges_processed",
 )
-
-_NOT_PORTED = {
-    "fault_plan": "fault_plan= (fault injection) is not ported yet "
-    "(ROADMAP A10, second part: reliability)",
-}
 
 # Observability handles (repro_torch.obs), the JAX package's metric names.
 # The byte counter moves on the same lines that charge the matching Meters
@@ -422,8 +430,21 @@ def _pre_iteration(program: VertexProgram, attrs_flat, aux: dict):
 
     The programs reduce over the last axis, so shared ``(n_pad,)`` and
     batched ``(K, n_pad)`` aux leaves both broadcast against ``(K, n_pad)``.
+    Each query's row is reduced on its own: a reduction's split over the
+    card's blocks depends on how many rows it has, so a fused batch's
+    float sums would round apart from the same query run alone.
     """
-    return program.pre_iteration(attrs_flat, aux)
+    K = attrs_flat.shape[0]
+    if K == 1:
+        return program.pre_iteration(attrs_flat, aux)
+    rows = [
+        program.pre_iteration(
+            attrs_flat[k:k + 1],
+            {n: (v[k:k + 1] if v.dim() == 2 else v) for n, v in aux.items()},
+        )
+        for k in range(K)
+    ]
+    return {n: torch.cat([r[n] for r in rows]) for n in rows[0]}
 
 
 def _edge_contrib(program, prev_src, src_view, dst_view, blk, has_weights, aux_batched):
@@ -949,8 +970,14 @@ def _packed_host_sweep(ctx: _RunContext, attrs_flat, acc, row_active, meters: Me
     units = [None] * len(starts)
 
     def put(n: int) -> None:
-        src, units[n], nbytes, slot = stream.fetch(starts[n], meters)
-        done = ring.put(n, src)
+        c = starts[n]
+        src, units[n], nbytes, slot = stream.fetch(c, meters)
+        # The copy is the "h2d" injection point (the JAX package's label:
+        # the chunk's first tile). Only the copy is retried, so the disk
+        # read and its charge happen once however many retries it takes.
+        done = with_transient_retries(
+            sess._injector, f"chunk:{stream.bounds[c][0]}", lambda: ring.put(n, src)
+        )
         if slot is not None:
             sess._disk_slots().copied(slot, done)
         meters.bytes_h2d += nbytes
@@ -1587,10 +1614,18 @@ class _BlockFetcher:
         return payload
 
     def _upload(self, key: tuple[int, int]) -> tuple:
-        """Queue one block's host→device copy and charge its raw bytes."""
+        """Queue one block's host→device copy and charge its raw bytes.
+
+        The copy is the "h2d" injection point: an injected transient fault
+        is retried in place (bounded, with backoff), and the charges land
+        once, after the copy, so the meters do not depend on the retries.
+        """
         sess = self._session
         payload = self._payload(key)
-        buf, done = streaming.upload(payload.buf, sess.device, sess._copy_stream())
+        buf, done = with_transient_retries(
+            sess._injector, f"block:{key[0]},{key[1]}",
+            lambda: streaming.upload(payload.buf, sess.device, sess._copy_stream()),
+        )
         if payload.slot is not None:
             sess._disk_slots().copied(payload.slot, done)
         self._meters.bytes_h2d += payload.nbytes
@@ -1670,8 +1705,8 @@ class GraphSession:
         tile chunks kept in host memory after the device pins, in
         streaming order; ``None`` caches everything. Disk-backed sessions
         only.
-      fault_plan: fault injection, ROADMAP A10's second part: anything but
-        ``None`` raises :class:`NotImplementedError`.
+      fault_plan: a :class:`repro_torch.reliability.FaultPlan` to inject
+        (see :meth:`inject_faults`); ``None`` injects nothing.
     """
 
     def __init__(
@@ -1687,10 +1722,8 @@ class GraphSession:
         Bv: int = 4,
         staged: "_StagedGraph | None" = None,
         host_memory_budget: int | None = None,
-        fault_plan=None,
+        fault_plan: FaultPlan | None = None,
     ):
-        if fault_plan is not None:
-            raise NotImplementedError(_NOT_PORTED["fault_plan"])
         _check_axis("residency", residency, ("device", "host", "disk", "auto"))
         _check_axis("execution", execution, ("packed_kernel", "packed", "per_block", "auto"))
         if packing not in ("adaptive", "subshard", "auto"):
@@ -1731,6 +1764,11 @@ class GraphSession:
                 "sessions are bounded by memory_budget alone"
             )
         self.host_memory_budget = host_memory_budget
+        # One live injector shared by the sweep loop, the copies and the
+        # store, so a plan's fire budgets are spent once across layers.
+        self._injector = None
+        if fault_plan is not None:
+            self.inject_faults(fault_plan)
         self._residency: dict[int, frozenset] = {}  # Ba -> resident set
         self._compiled: dict[tuple, CompiledPlan] = {}
         # Host residency: what the budget keeps on the device (one of the
@@ -1761,7 +1799,7 @@ class GraphSession:
         Be: int = 8,
         Bv: int = 4,
         verify: bool = True,
-        fault_plan=None,
+        fault_plan: FaultPlan | None = None,
         read_policy=None,
     ) -> "GraphSession":
         """Open a ``.dsss`` container as a disk-backed session.
@@ -1776,10 +1814,10 @@ class GraphSession:
         checksum first, so a truncated or bit-flipped file fails loudly;
         ``read_policy`` (a :class:`repro_torch.storage.ReadPolicy`) checks
         each segment a run reads on first touch instead, re-reading with
-        backoff and quarantining a segment that stays bad.
+        backoff and quarantining a segment that stays bad. ``fault_plan``
+        attaches a :class:`repro_torch.reliability.FaultPlan` to the session
+        and its store (see :meth:`inject_faults`).
         """
-        if fault_plan is not None:
-            raise NotImplementedError(_NOT_PORTED["fault_plan"])
         from repro_torch.storage.format import open_dsss
 
         store = open_dsss(path, verify=verify, read_policy=read_policy)
@@ -1795,12 +1833,31 @@ class GraphSession:
             Bv=Bv,
             staged=_StagedGraph(graph, store=store),
             host_memory_budget=host_memory_budget,
+            fault_plan=fault_plan,
         )
 
     @property
     def store(self):
         """The backing :class:`repro_torch.storage.DSSSStore`, or ``None``."""
         return self._store
+
+    def inject_faults(self, plan: FaultPlan | None) -> None:
+        """Attach (or clear, with ``None``) a deterministic fault plan.
+
+        Builds one live :class:`repro_torch.reliability.FaultInjector`
+        shared by the sweep loop (``"sweep"`` site), the host→device copies
+        of streamed blocks and tile chunks (``"h2d"``) and the backing
+        ``.dsss`` store's checksum reads (``"storage"``), so a plan's fire
+        budgets are spent once across layers.
+        """
+        self._injector = plan.injector() if plan is not None else None
+        if self._store is not None:
+            self._store.attach_faults(self._injector)
+
+    @property
+    def fault_injector(self):
+        """The live injector of the attached fault plan (or ``None``)."""
+        return self._injector
 
     def _heal_store_segments(self, prefix: str) -> None:
         """Check the store segments a disk run reads, once, under its ReadPolicy.
@@ -2071,16 +2128,25 @@ class GraphSession:
         self._packed_pins = (pin_tiles, form, pins, model, float(actual))
         return pins, model
 
-    def resolved_execution(self, strategy: str, override: str | None = None) -> str:
+    def resolved_execution(
+        self, strategy: str, residency: str, override: str | None = None
+    ) -> str:
         """Resolve the execution axis: ``"packed_kernel"``, ``"packed"`` or ``"per_block"``.
 
-        ``strategy`` is resolved (not ``"auto"``). The packed modes apply
+        ``strategy`` is resolved (not ``"auto"``) and ``residency`` is a
+        resolved residency (``"device"``, ``"host"`` or ``"disk"``; every
+        execution runs at each of them). The packed modes apply
         to the SPU/DPU/MPU schedules; ``"fused"`` and registered custom
         strategies run per-block even when a packed mode was asked for
         (results and meters are the same either way). ``"auto"`` is the
         kernel: the card plays the TPU's role here. ``"packed"``, the
         plain version of the tile sweep, runs only when named.
         """
+        if residency not in ("device", "host", "disk"):
+            raise ValueError(
+                "residency must be a resolved residency ('device', 'host' or "
+                f"'disk'), got {residency!r}"
+            )
         mode = override or self.execution
         if strategy not in ("spu", "dpu", "mpu"):
             return "per_block"
@@ -2201,7 +2267,7 @@ class GraphSession:
                     if residency == "disk"
                     else frozenset()
                 ),
-                execution=self.resolved_execution(choice.strategy, plan.execution),
+                execution=self.resolved_execution(choice.strategy, residency, plan.execution),
                 activity=(
                     "selective"
                     if plan.program.monotone and plan.activity != "off"
@@ -2256,22 +2322,59 @@ class GraphSession:
         return resident
 
     # -- execution -----------------------------------------------------------
-    def run(self, plan: ExecutionPlan) -> Result:
-        """Execute one plan against the staged graph."""
-        return self._execute(plan, [plan.kwargs_dict()]).results[0]
+    def run(
+        self,
+        plan: ExecutionPlan,
+        *,
+        resume_from: str | bool | None = None,
+        cancel: Callable[[int], None] | None = None,
+    ) -> Result:
+        """Execute one plan against the staged graph.
 
-    def run_batch(self, plans: list[ExecutionPlan]) -> BatchResult:
+        ``resume_from`` restores a sweep snapshot and continues: a snapshot
+        path, a checkpoint directory (its latest snapshot; an empty or
+        missing directory starts fresh), or ``True`` for the plan's own
+        ``checkpoint.directory``. The resumed run gives an uninterrupted
+        run's bits and field-identical meters (``wall_seconds`` sums the
+        attempts' time). ``cancel`` is called with the completed sweep
+        count before every sweep; raising
+        :class:`repro_torch.reliability.DeadlineExceeded` from it stops the
+        run between sweeps and leaves the session reusable.
+        """
+        return self._execute(
+            plan, [plan.kwargs_dict()], resume_from=resume_from, cancel=cancel
+        ).results[0]
+
+    def run_batch(
+        self,
+        plans: list[ExecutionPlan],
+        *,
+        resume_from: str | bool | None = None,
+        cancel: Callable[[int], None] | None = None,
+    ) -> BatchResult:
         """Execute K plans in one sweep sequence when they fuse, else in turn.
 
         Plans fuse when they share a ``batch_key()`` and their aux is
         identical or stackable; results are identical either way.
+        ``resume_from`` and ``cancel`` behave as in :meth:`run`; a fused
+        batch checkpoints and resumes as one unit, and only a fusable batch
+        can resume.
         """
         if not plans:
             return BatchResult([], Meters(), 0, True, True)
         if self._fusable(plans):
-            return self._execute(plans[0], [p.kwargs_dict() for p in plans])
+            return self._execute(
+                plans[0], [p.kwargs_dict() for p in plans],
+                resume_from=resume_from, cancel=cancel,
+            )
+        if resume_from:
+            raise ValueError(
+                "resume_from requires a fusable batch (one snapshot holds "
+                "the whole batch's state); these plans fall back to "
+                "sequential runs — resume them individually"
+            )
         meters = Meters()
-        results = [self.run(p) for p in plans]
+        results = [self.run(p, cancel=cancel) for p in plans]
         for r in results:
             meters.merge(r.meters)
         return BatchResult(
@@ -2296,6 +2399,90 @@ class GraphSession:
                 if aux[k].shape != aux0[k].shape or aux[k].dtype != aux0[k].dtype:
                     return False
         return True
+
+    def _resolve_resume(self, plan: ExecutionPlan, resume_from: str | bool | None) -> str | None:
+        """A ``resume_from`` argument as a snapshot path, or ``None`` for a fresh start.
+
+        A directory resumes from its latest snapshot, or starts fresh when
+        it holds none; ``True`` names the plan's checkpoint directory; a
+        file path must exist.
+        """
+        if not resume_from:
+            return None
+        if resume_from is True:
+            if plan.checkpoint is None:
+                raise ValueError(
+                    "resume_from=True needs plan.checkpoint to name the snapshot directory"
+                )
+            resume_from = plan.checkpoint.directory
+        if os.path.isdir(resume_from):
+            return latest_snapshot(resume_from)
+        if not os.path.exists(resume_from):
+            raise SnapshotError(f"{resume_from}: no such snapshot")
+        return resume_from
+
+    def _save_sweep_snapshot(
+        self, spec, plan, attrs, active, converged_at, sweeps, activity_log, meters, wall_seconds,
+    ) -> None:
+        """Atomically snapshot the loop state after one sweep (the JAX package's format).
+
+        The only host copy of ``attrs`` a run makes between its sweeps, so
+        it synchronizes with the device only on checkpoint sweeps.
+        """
+        g = self.graph
+        mdict = {f.name: _plain(getattr(meters, f.name)) for f in dataclasses.fields(meters)}
+        # The live meter keeps counting; the snapshot records the elapsed
+        # time as of the save.
+        mdict["wall_seconds"] = wall_seconds
+        meta = {
+            "sweeps": sweeps,
+            "meters": mdict,
+            "program": plan.program.name,
+            "K": len(converged_at),
+            "P": int(g.P),
+            "interval_size": int(g.interval_size),
+            "n": int(g.n),
+            "m": int(g.m),
+        }
+        arrays = {
+            "attrs": attrs.cpu().numpy(),
+            "active": np.asarray(active),
+            "activity_log": (
+                np.stack(activity_log) if activity_log else np.zeros((0, g.P), dtype=bool)
+            ),
+            "converged_at": np.asarray([-1 if c is None else c for c in converged_at], np.int64),
+        }
+        save_snapshot(spec.directory, sweeps, arrays, meta, keep=spec.keep)
+
+    def _restore_sweep_snapshot(self, path: str, plan: ExecutionPlan, K: int, meters: Meters):
+        """Load one snapshot back into the loop state, checked against the plan."""
+        arrays, meta = load_snapshot(path)
+        g = self.graph
+        expect = {
+            "program": plan.program.name,
+            "K": K,
+            "P": int(g.P),
+            "interval_size": int(g.interval_size),
+            "n": int(g.n),
+            "m": int(g.m),
+        }
+        for key, want in expect.items():
+            got = meta.get(key)
+            if got != want:
+                raise SnapshotError(
+                    f"{path}: snapshot has {key}={got!r} but the resuming "
+                    f"plan/session needs {key}={want!r}"
+                )
+        # The cumulative meters, wholesale: the snapshot was taken after this
+        # run's set-up charges (pins, the fused peak), so the resumed totals
+        # equal the uninterrupted run's field for field.
+        for name, value in meta["meters"].items():
+            setattr(meters, name, value)
+        attrs = torch.from_numpy(np.ascontiguousarray(arrays["attrs"])).to(self.device)
+        active = np.asarray(arrays["active"])
+        converged_at = [None if c < 0 else int(c) for c in arrays["converged_at"]]
+        activity_log = [np.asarray(row) for row in arrays["activity_log"]]
+        return attrs, active, converged_at, int(meta["sweeps"]), activity_log
 
     def _publish_iomodel_drift(self, compiled: CompiledPlan, meters: Meters) -> None:
         """Gauge the run's measured/modelled slow-tier bytes per sweep.
@@ -2322,8 +2509,21 @@ class GraphSession:
                 meters.bytes_written / iters / write
             )
 
-    def _execute(self, plan: ExecutionPlan, kwargs_list: list[dict]) -> BatchResult:
+    def _execute(
+        self,
+        plan: ExecutionPlan,
+        kwargs_list: list[dict],
+        *,
+        resume_from: str | bool | None = None,
+        cancel: Callable[[int], None] | None = None,
+    ) -> BatchResult:
         """Run the sweeps of one plan for ``len(kwargs_list)`` queries.
+
+        Each sweep boundary runs, in the JAX package's order: ``cancel``,
+        the injector's ``"sweep"`` check (an injected crash), the sweep,
+        and on every ``checkpoint.every``-th sweep a snapshot (its own
+        ``checkpoint`` span). Without a checkpoint, an injector or a cancel
+        the loop adds no host work and no device synchronization.
 
         Observability: a plan's ``trace`` turns the tracer on for the run,
         pins and staging included, and restores it after; each sweep's span
@@ -2400,10 +2600,25 @@ class GraphSession:
             ]
             sweeps = 0
             activity_log: list[np.ndarray] = []
+            wall0 = 0.0
+            snap_path = self._resolve_resume(plan, resume_from)
+            if snap_path is not None:
+                attrs, active, converged_at, sweeps, activity_log = (
+                    self._restore_sweep_snapshot(snap_path, plan, K, meters)
+                )
+                wall0 = meters.wall_seconds
+            ckpt = plan.checkpoint
+            inj = self._injector
             start = time.perf_counter()
-            for _ in range(plan.max_iters):
+            for _ in range(sweeps, plan.max_iters):
                 if not active.any():
                     break
+                # Cancellation and injected crashes land on the sweep
+                # boundary, never mid-sweep, so a snapshot is always whole.
+                if cancel is not None:
+                    cancel(sweeps)
+                if inj is not None:
+                    inj.check("sweep", sweeps)
                 # The sweep's processed-interval bitmap, before it moves on.
                 if compiled.activity == "selective":
                     activity_log.append(active.any(axis=0).copy())
@@ -2437,10 +2652,21 @@ class GraphSession:
                 for m in range(K):
                     if converged_at[m] is None and not active[m].any():
                         converged_at[m] = sweeps
+                if ckpt is not None and sweeps % ckpt.every == 0:
+                    t_ck = time.perf_counter()
+                    self._save_sweep_snapshot(
+                        ckpt, plan, attrs, active, converged_at, sweeps,
+                        activity_log, meters, wall0 + (t_ck - start),
+                    )
+                    if tracing:
+                        _TRACER.record(
+                            "checkpoint", t_ck, time.perf_counter(), cat="engine",
+                            args={"run": run_id, "sweep": sweeps},
+                        )
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             end = time.perf_counter()
-            meters.wall_seconds = end - start
+            meters.wall_seconds = wall0 + (end - start)
             if tracing:
                 _TRACER.record(
                     "run", start, end, cat="engine",
@@ -2595,6 +2821,11 @@ def get_session(
 def clear_session_cache() -> None:
     """Release every cached session (and its staged state)."""
     _SESSION_LRU.clear()
+
+
+def _plain(value):
+    """A meter value as a JSON number (numpy scalars become Python ones)."""
+    return value.item() if isinstance(value, np.generic) else value
 
 
 def _check_axis(name: str, value: str, allowed: tuple) -> None:

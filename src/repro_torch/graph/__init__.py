@@ -1,4 +1,4 @@
-"""Graph substrate of the port: generators and the degreeing pass."""
+"""Graph substrate of the port: generators, the degreeing pass and edge-list I/O."""
 from repro_torch.graph.generators import (
     complete,
     erdos_renyi,
@@ -10,6 +10,7 @@ from repro_torch.graph.generators import (
     star,
     zipf,
 )
+from repro_torch.graph.io import load_edges, save_edges
 from repro_torch.graph.preprocess import EdgeList, degree_and_densify
 
 __all__ = [
@@ -24,4 +25,6 @@ __all__ = [
     "paper_dataset_names",
     "degree_and_densify",
     "EdgeList",
+    "save_edges",
+    "load_edges",
 ]

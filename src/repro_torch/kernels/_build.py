@@ -5,7 +5,8 @@ alone (no PyTorch headers, so a build takes seconds) into
 ``build/repro_torch_kernels/`` at the root of the checkout. The library
 name carries a hash of the source and the flags, so an edited source is
 rebuilt and a stale one never loaded. A failed build raises with nvcc's
-output.
+output. Builds and loads hold one lock, so threads that first touch a
+kernel together (a graph server's executor threads) run one ``nvcc``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "load", "build_log"]
@@ -29,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()  # one build or load at a time within the process
 build_log: dict[str, str] = {}  # source name -> nvcc's output of its build
 
 
@@ -81,15 +84,16 @@ def _finish(name: str, job) -> None:
 
 def build_all() -> None:
     """Build every source, one nvcc each, all started together."""
-    jobs = {name: _start(name) for name in SOURCES}
     errors = []
-    for name, job in jobs.items():
-        if job is None:
-            continue
-        try:
-            _finish(name, job)
-        except RuntimeError as exc:
-            errors.append(str(exc))
+    with _lock:
+        jobs = {name: _start(name) for name in SOURCES}
+        for name, job in jobs.items():
+            if job is None:
+                continue
+            try:
+                _finish(name, job)
+            except RuntimeError as exc:
+                errors.append(str(exc))
     if errors:
         raise RuntimeError("\n\n".join(errors))
 
@@ -97,10 +101,14 @@ def build_all() -> None:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
-    if lib is None:
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(str(_target(name)))
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            job = _start(name)
+            if job is not None:
+                _finish(name, job)
+            lib = ctypes.CDLL(str(_target(name)))
+            _loaded[name] = lib
     return lib

@@ -29,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -45,6 +46,7 @@ from repro_torch.core.vertex_programs import (
 
 __all__ = [
     "packed_sweep_update",
+    "packed_sweep_update_select",
     "packed_sweep_update_ref",
     "packed_sweep_range_ref",
     "prepare_packed_tiles",
@@ -67,6 +69,9 @@ launches = 0
 # The per-sweep pre_gather entry of the range path (RangeSweep on the card),
 # counted apart from the launches above.
 pre_gathers = 0
+# The counts are bumped under this lock: a graph server launches from
+# several executor threads.
+_count_lock = threading.Lock()
 
 # A warp stages this many edge positions at a time (kCap in the kernel).
 # Runs longer than that are folded window by window by a warp of their own
@@ -840,7 +845,8 @@ def _launch(
     )
     if err != 0:
         raise RuntimeError(f"packed_sweep kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out
 
 
@@ -874,6 +880,30 @@ def packed_sweep_update(
         aux_batched, idx, a_valid,
     )
 
+
+
+def packed_sweep_update_select(
+    program,
+    attrs_flat: torch.Tensor,
+    acc_flat: torch.Tensor,
+    aux: dict,
+    tiles: dict,
+    idx: torch.Tensor,
+    a_valid: int,
+    row_active: torch.Tensor,
+    has_weights: bool,
+    aux_batched: bool = False,
+) -> torch.Tensor:
+    """The selective front end under the JAX package's name and argument order.
+
+    The tiles ``idx[:a_valid]`` (ascending) through :func:`packed_sweep_update`,
+    which takes the selection itself: the kernel on a CUDA tensor, its plain
+    version on a CPU one.
+    """
+    return packed_sweep_update(
+        program, attrs_flat, acc_flat, aux, tiles, row_active, has_weights,
+        aux_batched, idx, int(a_valid),
+    )
 
 class RangeSweep:
     """One sweep of kernel B1 over tile ranges: the host-residency path.
@@ -929,7 +959,8 @@ class RangeSweep:
         )
         if err != 0:
             raise RuntimeError(f"packed_sweep pre_gather launch failed: CUDA error {err}")
-        pre_gathers += 1
+        with _count_lock:
+            pre_gathers += 1
         self._fn = _library("packed_sweep_range_launch")
 
     def update(
@@ -979,5 +1010,6 @@ class RangeSweep:
         )
         if err != 0:
             raise RuntimeError(f"packed_sweep range launch failed: CUDA error {err}")
-        launches += 1
+        with _count_lock:
+            launches += 1
         return acc

@@ -9,8 +9,8 @@ Routes:
 * ``GET /metrics`` — Prometheus text exposition of the process registry.
   ``on_scrape`` (if given) runs first, so a caller can publish a fresh
   snapshot of its own statistics per scrape: the scraped counters then
-  equal that snapshot by construction. (The graph serving stack that
-  feeds it is ROADMAP A11.)
+  equal that snapshot by construction
+  (:class:`repro_torch.serving.GraphServer` wires its stats here).
 * ``GET /healthz`` — JSON health document from ``health_fn``; HTTP 200
   when ``status == "ok"``, 503 otherwise (breaker open, queue saturated).
 """

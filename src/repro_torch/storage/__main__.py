@@ -3,13 +3,16 @@
     python -m repro_torch.storage build edges.txt graph.dsss --P 16
     python -m repro_torch.storage info graph.dsss
     python -m repro_torch.storage verify graph.dsss
+    python -m repro_torch.storage verify graph.dsss --repair --source edges.txt
 
 ``build`` streams a SNAP-style text edge list (``src dst [weight]`` per
 line, ``#`` comments) through the bounded-RAM external-memory pipeline;
 ``info`` prints the header and segment directory; ``verify`` recomputes
 every segment checksum and exits non-zero on mismatch or truncation.
-``verify --repair`` (rebuild a damaged container from its source) is
-ROADMAP A10's second part and raises :class:`NotImplementedError`.
+``verify --repair`` instead scans all segments, reports every damaged
+one, and — given ``--source`` — rebuilds the container from the raw edge
+list and atomically swaps the verified replacement in
+(:func:`repro_torch.reliability.repair.repair_dsss`).
 """
 from __future__ import annotations
 
@@ -91,9 +94,25 @@ def _cmd_verify(args) -> int:
 
 
 def _cmd_repair(args) -> int:
-    raise NotImplementedError(
-        "verify --repair is not ported yet (ROADMAP A10, second part: reliability)"
+    from repro_torch.reliability.repair import repair_dsss
+
+    try:
+        report = repair_dsss(
+            args.path,
+            args.source,
+            chunk_budget=args.chunk_budget,
+        )
+    except (FormatError, OSError, ValueError) as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    if not report["damaged"]:
+        print(f"OK: {args.path} (all segments clean, nothing to repair)")
+        return 0
+    print(
+        f"repaired {args.path}: damaged segments "
+        f"{', '.join(report['damaged'])} rebuilt from {report['source']}"
     )
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -99,8 +99,8 @@ class DegradedReadError(FormatError):
 
     Structured: names the exact segment, its byte extent, its tile span
     (packed ``p_*`` segments), and how many read attempts were spent — the
-    report an operator acts on. The fetch layer raises this instead of
-    ever returning garbage.
+    report an operator (or ``repro_torch.storage verify --repair``) acts
+    on. The fetch layer raises this instead of ever returning garbage.
     """
 
     def __init__(
@@ -128,8 +128,8 @@ class DegradedReadError(FormatError):
         super().__init__(
             f"{path}: segment {segment!r} quarantined after {attempts} read "
             f"attempts (bytes [{offset}, {offset + nbytes}){span}); rebuild "
-            "the container from the raw edge source with "
-            "`python -m repro_torch.storage build`"
+            "it from the raw edge source with "
+            "`python -m repro_torch.storage verify --repair --source <edges>`"
         )
 
 
@@ -367,6 +367,7 @@ class DSSSStore:
         self.quarantined: dict[str, DegradedReadError] = {}
         self.healed_reads = 0
         self._verified: set[str] = set()
+        self._injector = None
         size = os.path.getsize(path)
         if size < _PREAMBLE.size:
             raise FormatError(f"{path}: too small to be a .dsss file")
@@ -434,18 +435,35 @@ class DSSSStore:
         return arr
 
     def attach_faults(self, injector) -> None:
-        """Fault injection into the store's reads: ROADMAP A10, second part."""
-        raise NotImplementedError(
-            "DSSSStore.attach_faults (fault injection) is not ported yet "
-            "(ROADMAP A10, second part: reliability)"
-        )
+        """Attach (or clear) a :class:`repro_torch.reliability.FaultInjector`.
 
-    def _checksum_segment(self, seg: Segment) -> None:
+        The injector's ``storage_read(segment, attempt)`` decisions make
+        checksum reads observe corrupt / short bytes — the deterministic
+        stand-in for torn reads and bad media the self-healing path is
+        tested against. Clearing resets the verified-segment memo so a
+        new plan re-exercises the reads.
+        """
+        self._injector = injector
+        self._verified.clear()
+
+    def _checksum_segment(self, seg: Segment, *, attempt: int = 0) -> None:
         """Recompute one segment's checksum — one bounded-chunk read attempt.
 
-        Raises :class:`ChecksumError` on any mismatch; never returns bad
-        bytes to a caller.
+        This is the storage fault-injection boundary: an attached injector
+        can make this attempt observe a short (truncated) or corrupt
+        (crc-perturbed) read. Raises :class:`ChecksumError` on any
+        mismatch; never returns bad bytes to a caller.
         """
+        decision = (
+            self._injector.storage_read(seg.name, attempt)
+            if self._injector is not None
+            else None
+        )
+        if decision == "short":
+            raise ChecksumError(
+                f"{self.path}: segment {seg.name!r} truncated "
+                "(injected short read)"
+            )
         with open(self.path, "rb") as f:
             f.seek(seg.offset)
             remaining, crc = seg.nbytes, 0
@@ -457,6 +475,8 @@ class DSSSStore:
                     )
                 crc = zlib.crc32(buf, crc)
                 remaining -= len(buf)
+        if decision == "corrupt":
+            crc ^= 0xDEADBEEF  # the injected bit flip
         if crc != seg.crc32:
             raise ChecksumError(
                 f"{self.path}: segment {seg.name!r} checksum mismatch "
@@ -475,7 +495,7 @@ class DSSSStore:
     def scan(self) -> list[str]:
         """Names of segments whose checksum currently fails (no retries).
 
-        A damage report: unlike :meth:`verify` it keeps
+        The repair tool's damage report: unlike :meth:`verify` it keeps
         going past the first failure, and unlike :meth:`ensure_segment`
         it neither retries nor quarantines.
         """
@@ -508,7 +528,7 @@ class DSSSStore:
         delay = policy.backoff_s
         while True:
             try:
-                self._checksum_segment(seg)
+                self._checksum_segment(seg, attempt=attempt)
             except ChecksumError as exc:
                 if attempt >= policy.max_retries:
                     tile_range = (

@@ -324,9 +324,17 @@ def test_wcc_refuses_an_asymmetric_dsss():
 
 @pytest.mark.parametrize("driver", [talg.multi_bfs, talg.multi_sssp])
 def test_server_is_not_ported(driver):
+    """``server=`` is ported (ROADMAP A11): the sources go through the graph
+    server's micro-batcher and come back equal to the direct batch."""
+    from repro_torch.serving import GraphServer
+
     _, tg = _graphs("ring-P3")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        driver(tg, [0, 1], device="cpu", server=object())
+    direct = driver(tg, [0, 1], device="cpu")
+    via = driver(tg, [0, 1], device="cpu", server=GraphServer(max_batch=8, max_wait_ms=1.0))
+    assert via.fused and len(via) == len(direct)
+    for a, b in zip(direct, via):
+        np.testing.assert_array_equal(a.attrs, b.attrs)
+        assert a.iterations == b.iterations
 
 
 @pytest.mark.parametrize("driver", ["pagerank", "bfs", "sssp", "wcc"])

@@ -193,8 +193,12 @@ def test_disk_requires_a_store(staged):
         )
     with pytest.raises(ValueError, match="host_memory_budget"):
         rt.GraphSession(tg, device="cpu", host_memory_budget=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10, second part"):
-        _open(path, fault_plan=object())
+    # fault_plan= is ported (ROADMAP A10, second part): the session and its
+    # store share one injector.
+    from repro_torch.reliability import FaultPlan
+
+    sess = _open(path, fault_plan=FaultPlan.storage_corrupt("p_dst", times=1))
+    assert sess.fault_injector is not None and sess.store._injector is sess.fault_injector
 
 
 @pytest.mark.parametrize("execution", ["per_block", "packed_kernel"])

@@ -153,11 +153,34 @@ def test_shared_session_of_another_graph_raises():
 
 
 @pytest.mark.parametrize("hook", ["checkpoint", "resume_from", "cancel"])
-def test_reliability_hooks_are_not_ported(hook):
+def test_reliability_hooks_are_not_ported(hook, tmp_path):
+    """The hooks are ported (ROADMAP A10, second part) and reach the session:
+    snapshots are written, a resume gives the uninterrupted bits, and
+    ``cancel`` sees every sweep boundary."""
+    from repro_torch.reliability import CheckpointSpec, DeadlineExceeded, list_snapshots
+
     _, tg = _graph(seed=3)
     eng = rt.NXGraphEngine(tg, rt.PageRank(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        eng.run(ITERS, tol=0.0, **{hook: object()})
+    ref = eng.run(ITERS, tol=0.0)
+    ck = CheckpointSpec(str(tmp_path / "s"), every=2, keep=2)
+    if hook == "checkpoint":
+        got = eng.run(ITERS, tol=0.0, checkpoint=ck)
+        assert len(list_snapshots(ck.directory)) == 2
+    elif hook == "resume_from":
+        eng.run(4, tol=0.0, checkpoint=ck)
+        got = eng.run(ITERS, tol=0.0, checkpoint=ck, resume_from=ck.directory)
+    else:
+        seen = []
+        got = eng.run(ITERS, tol=0.0, cancel=seen.append)
+        assert seen == list(range(ITERS))
+
+        def stop(sweep):
+            if sweep == 3:
+                raise DeadlineExceeded("deadline")
+
+        with pytest.raises(DeadlineExceeded):
+            eng.run(ITERS, tol=0.0, cancel=stop)
+    np.testing.assert_array_equal(got.attrs.view(np.int32), ref.attrs.view(np.int32))
 
 
 def test_engine_defaults_to_the_card(monkeypatch):
@@ -304,7 +327,7 @@ def test_build_graphchi_like_matches_reference_and_runs_under_auto():
         else:
             assert a == b, f.name
     sess = rt.GraphSession(tg, device="cpu")
-    assert sess.packing == "subshard" and sess.resolved_execution("spu") == "packed_kernel"
+    assert sess.packing == "subshard" and sess.resolved_execution("spu", "device") == "packed_kernel"
     t = sess.run(rt.ExecutionPlan(rt.BFS(), max_iters=tg.n + 1, program_kwargs={"root": 0}))
     j = jc.GraphSession(jg, execution="packed").run(
         jc.ExecutionPlan(jc.BFS(), max_iters=jg.n + 1, program_kwargs={"root": 0})

@@ -85,7 +85,9 @@ def test_registry_deltas_equal_meters(staged, residency, execution):
     labels = dict(
         program="pagerank", strategy=res.strategy.strategy,
         residency=sess.resolved_residency(),
-        execution=sess.resolved_execution(res.strategy.strategy, execution),
+        execution=sess.resolved_execution(
+            res.strategy.strategy, sess.resolved_residency(), execution
+        ),
     )
     assert REGISTRY.value("repro_engine_runs_total", **labels) >= 1
     assert REGISTRY.value("repro_engine_peak_device_graph_bytes") == (

@@ -17,6 +17,7 @@ from repro_torch.core.vertex_programs import BFS
 from repro_torch.graph.generators import ring
 from repro_torch.graph.preprocess import degree_and_densify
 from repro_torch.kernels import packed_sweep as ps
+from repro_torch.reliability import FaultPlan
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = Path(repro_torch.__file__).resolve().parent
@@ -34,6 +35,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "import repro_torch.core.baselines\n"
         "import repro_torch.obs, repro_torch.obs.__main__, repro_torch.runtime.trace_analysis\n"
         "import repro_torch.storage, repro_torch.storage.__main__, repro_torch.graph.io\n"
+        "import repro_torch.reliability, repro_torch.reliability.repair, repro_torch.runtime.fault\n"
+        "import repro_torch.serving, repro_torch.serving.server, repro_torch.serving.pool\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -184,11 +187,13 @@ def test_missing_nvcc_raises(monkeypatch):
         ({"execution": "packed", "residency": "disk"}, ValueError),
         ({"execution": "per_block", "residency": "disk"}, ValueError),
         ({"residency": "nowhere"}, ValueError),
-        ({"fault_plan": object()}, NotImplementedError),
+        # fault_plan= is ported (ROADMAP A10, second part); a plan on an
+        # in-memory graph still cannot ask for disk residency.
+        ({"fault_plan": FaultPlan.crash_at_sweep(1), "residency": "disk"}, ValueError),
     ],
 )
 def test_unported_axes_raise(kwargs, err):
-    with pytest.raises(err, match="ROADMAP A10|must be one of|disk-backed session"):
+    with pytest.raises(err, match="must be one of|disk-backed session"):
         GraphSession(_tiny_graph(), device="cpu", **kwargs)
 
 
@@ -204,5 +209,7 @@ def test_unported_plans_raise():
         )
     with pytest.raises(ValueError, match="host_memory_budget"):
         repro_torch.get_session(g, device="cpu", host_memory_budget=1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10, second part"):
+    # Checkpoints are ported (ROADMAP A10, second part): anything but a
+    # CheckpointSpec is refused, as in the JAX package.
+    with pytest.raises(TypeError, match="CheckpointSpec"):
         repro_torch.ExecutionPlan(BFS(), checkpoint=object())

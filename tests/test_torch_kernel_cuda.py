@@ -12,7 +12,10 @@ path's ordered reductions must give the CPU's bits; and per-block
 SPU/DPU/MPU sessions must equal packed_kernel sessions bitwise on the card.
 ``execution="packed"`` (the tile sweep's plain version, by name) must give
 B1's bits and meters without launching it, and the §IV drivers on the card
-the CPU's results, with one B1 launch per sweep.
+the CPU's results, with one B1 launch per sweep. Under a transient H2D
+fault plan host and disk sessions heal to the clean run's bits, meters
+and B1 launches; crash → resume and a served batch give the uninterrupted
+and solo bits; two threads that first touch B1 together build it once.
 
 Needs a CUDA device (``-m cuda``); skips without one, since the kernels
 have no CPU mode. Imports no JAX, so it runs where only the port is installed:
@@ -766,6 +769,153 @@ def test_disk_residency_on_card_bitwise_equals_device(strategy, execution, dev, 
             for a, b in zip(batch, want_sssp):
                 np.testing.assert_array_equal(a.attrs.view(np.int32), b.attrs.view(np.int32))
             assert batch.meters.model_dict() == want_sssp.meters.model_dict()
+
+
+# ---------------------------------------------------------------------------
+# Reliability and serving through B1 on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("residency", ["host", "disk"])
+@pytest.mark.parametrize("execution", ["packed_kernel", "per_block"])
+def test_transient_plan_heals_through_b1_on_card(residency, execution, dev, tmp_path):
+    """A transient H2D plan that fires and heals gives the clean run's bits and
+    meters on the card, and B1 runs once per slab and chunk as without it; a
+    fault that escapes leaves the session's ring and slots sound."""
+    from repro_torch.reliability import FaultPlan, TransientFault
+    from repro_torch.storage import write_dsss
+
+    g = _graph("rmat", 8, True)
+    pr = vp.PageRank()
+    path = str(tmp_path / "g.dsss")
+    write_dsss(g, path)
+
+    def session(**kw):
+        if residency == "disk":
+            return GraphSession.open(path, memory_budget=0, host_memory_budget=0,
+                                     execution=execution, **kw)
+        return GraphSession(g, memory_budget=0, residency="host", execution=execution, **kw)
+
+    plan = ExecutionPlan(pr, strategy="dpu", max_iters=6, tol=0.0)
+    clean_sess = session()
+    before = ps.launches
+    clean = clean_sess.run(plan)
+    torch.cuda.synchronize()
+    clean_launches = ps.launches - before
+    sess = session(fault_plan=FaultPlan.h2d_transient(rate=0.2, times=None, seed=5))
+    before = ps.launches
+    got = sess.run(plan)
+    torch.cuda.synchronize()
+    assert ps.launches - before == clean_launches
+    assert (clean_launches > 0) == (execution == "packed_kernel")
+    assert sess.fault_injector.fired("h2d") > 0
+    np.testing.assert_array_equal(got.attrs.view(np.int32), clean.attrs.view(np.int32))
+    assert got.meters.model_dict() == clean.meters.model_dict()
+    assert got.meters.bytes_h2d == clean.meters.bytes_h2d
+    assert got.meters.bytes_disk_read == clean.meters.bytes_disk_read
+    # Escape mid-sweep (a later copy fails four times in a row), then run
+    # clean on the same session.
+    label = "block:1," if execution == "per_block" else "chunk:5"
+    sess.inject_faults(FaultPlan.h2d_transient(rate=1.0, times=4, match=label))
+    with pytest.raises(TransientFault):
+        sess.run(plan)
+    sess.inject_faults(None)
+    again = sess.run(plan)
+    np.testing.assert_array_equal(again.attrs.view(np.int32), clean.attrs.view(np.int32))
+    assert again.meters.bytes_h2d == clean.meters.bytes_h2d
+
+
+@pytest.mark.parametrize("residency", ["device", "host"])
+def test_crash_resume_and_serving_on_card(residency, dev, tmp_path):
+    """Crash at sweep 5, resume: the uninterrupted bits and meters on the card,
+    B1 once per sweep; the graph server's fused BFS batch equals solo runs."""
+    from repro_torch.reliability import CheckpointSpec, FaultPlan, InjectedCrash
+    from repro_torch.serving import GraphServer, QueryRequest, SessionPool
+
+    g = _graph("rmat", 8, True)
+    pr = vp.PageRank()
+    kw = dict(residency=residency, memory_budget=0 if residency == "host" else None)
+    ck = CheckpointSpec(str(tmp_path / "s"), every=2, keep=2)
+    plan = ExecutionPlan(pr, strategy="spu", max_iters=8, tol=0.0, checkpoint=ck)
+    ref = GraphSession(g, **kw).run(ExecutionPlan(pr, strategy="spu", max_iters=8, tol=0.0))
+    sess = GraphSession(g, fault_plan=FaultPlan.crash_at_sweep(5), **kw)
+    with pytest.raises(InjectedCrash):
+        sess.run(plan)
+    got = sess.run(plan, resume_from=True)
+    np.testing.assert_array_equal(got.attrs.view(np.int32), ref.attrs.view(np.int32))
+    want = {k: v for k, v in vars(ref.meters).items() if k != "wall_seconds"}
+    assert {k: v for k, v in vars(got.meters).items() if k != "wall_seconds"} == want
+    pool = SessionPool()
+    pool.register("g", g, **kw)
+    roots = [0, 3, 7, 11, 20, 33, 40, 51]
+    plans = [ExecutionPlan(vp.BFS(), max_iters=g.n + 1, program_kwargs={"root": r}) for r in roots]
+    before = ps.launches
+    served = GraphServer(pool, max_batch=8, max_wait_ms=2.0).serve([QueryRequest("g", p) for p in plans])
+    torch.cuda.synchronize()
+    assert ps.launches > before and all(q.fused and q.batch_size == 8 for q in served)
+    solo = pool.session("g")
+    assert solo.device.type == "cuda"
+    for p, q in zip(plans, served):
+        np.testing.assert_array_equal(q.result.attrs, solo.run(p).attrs)
+
+
+def test_two_threads_first_touch_a_kernel(dev, monkeypatch):
+    """Two threads that first touch B1 together load one library: the second
+    waits on the build lock instead of starting a second nvcc."""
+    import threading
+
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "_loaded", {})
+    started = []
+    real_start = _build._start
+
+    def counting_start(name):
+        job = real_start(name)
+        if job is not None:
+            started.append(name)
+        return job
+
+    monkeypatch.setattr(_build, "_start", counting_start)
+    target = _build._target("packed_sweep")
+    if target.exists():
+        target.unlink()  # force a build, so both threads reach it cold
+    libs, errors = [], []
+    barrier = threading.Barrier(2)
+
+    def touch():
+        try:
+            barrier.wait()
+            libs.append(_build.load("packed_sweep"))
+        except Exception as exc:  # pragma: no cover - failure capture
+            errors.append(exc)
+
+    threads = [threading.Thread(target=touch) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == [] and started == ["packed_sweep"]
+    assert libs[0] is libs[1]
+    # The kernel runs from both threads, each on its own current stream.
+    g = _graph("rmat", 8, False)
+    tiles = ps.prepare_packed_tiles(g.packed_sweep("adaptive"), has_weights=False, device=dev)
+    pr = vp.PageRank()
+    attrs = pr.init_attrs(g).to(dev)[None, :]
+    aux = {k: v.to(dev) for k, v in pr.make_aux(g).items()}
+    row = torch.ones(g.P, dtype=torch.bool, device=dev)
+    want = ps.packed_sweep_update_ref(pr, attrs, torch.zeros_like(attrs), aux, tiles, row, False)
+    outs = []
+
+    def sweep():
+        out = ps.packed_sweep_update(pr, attrs, torch.zeros_like(attrs), aux, tiles, row, False)
+        torch.cuda.current_stream(dev).synchronize()
+        outs.append(out)
+
+    threads = [threading.Thread(target=sweep) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(outs) == 2 and all(torch.equal(o, want) for o in outs)
 
 
 # ---------------------------------------------------------------------------

@@ -177,7 +177,7 @@ def test_plan_validation_and_batch_key():
         tvp.MaxLabelForward(), strategy="dpu", program_kwargs={"mask": mask.copy()}
     ))
     np.testing.assert_array_equal(t.kwargs_dict()["mask"], j.kwargs_dict()["mask"])
-    assert len(t.batch_key()) == len(j.batch_key()) - 1  # no checkpoint axis yet
+    assert len(t.batch_key()) == len(j.batch_key())  # the checkpoint axis included
     other = tplan.ExecutionPlan(
         tvp.MaxLabelForward(), strategy="dpu", program_kwargs={"mask": mask[::-1].copy()}
     )
@@ -192,11 +192,13 @@ def test_plan_validation_and_batch_key():
             tplan.ExecutionPlan(tvp.BFS(), **bad)
         with pytest.raises(err):
             jplan.ExecutionPlan(jvp.BFS(), **bad)
-    # trace is ported (observational, outside batch_key); checkpoint stays
-    # refused until ROADMAP A10's second part.
+    # trace is ported (observational, outside batch_key); so is checkpoint
+    # (ROADMAP A10, second part), which both packages type-check.
     assert t.trace is None and t.checkpoint is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A10, second part"):
+    with pytest.raises(TypeError, match="CheckpointSpec"):
         tplan.ExecutionPlan(tvp.BFS(), checkpoint=object())
+    with pytest.raises(TypeError, match="CheckpointSpec"):
+        jplan.ExecutionPlan(jvp.BFS(), checkpoint=object())
 
 
 @pytest.mark.parametrize("weighted", [False, True])

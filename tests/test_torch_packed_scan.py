@@ -173,16 +173,30 @@ def test_packed_runs_the_plain_version_by_name(monkeypatch):
 def test_fused_and_registered_strategies_resolve_to_per_block(execution):
     _, tg = _graphs("plain", 4)
     sess = rt.GraphSession(tg, device="cpu", execution=execution)
-    assert sess.resolved_execution("fused") == "per_block"
     want = "packed_kernel" if execution == "auto" else execution
-    for s in ("spu", "dpu", "mpu"):
-        assert sess.resolved_execution(s) == want
+    # The reference's signature, resolved_execution(strategy, residency,
+    # override=None): every execution runs at each residency.
+    for residency in ("device", "host", "disk"):
+        assert sess.resolved_execution("fused", residency) == "per_block"
+        for s in ("spu", "dpu", "mpu"):
+            assert sess.resolved_execution(s, residency) == want
+            assert sess.resolved_execution(s, residency, "per_block") == "per_block"
+    with pytest.raises(ValueError, match="resolved residency"):
+        sess.resolved_execution("spu", "auto")
     rt.GraphSession.register_strategy("resolve-probe", tsession._iteration_spu)
     try:
-        assert sess.resolved_execution("resolve-probe") == "per_block"
+        assert sess.resolved_execution("resolve-probe", "device") == "per_block"
         plan = rt.ExecutionPlan(rt.PageRank(), strategy="resolve-probe", execution=execution)
         assert sess.compile(plan).execution == "per_block"
     finally:
         tsession._STRATEGIES.pop("resolve-probe", None)
     jsess = jc.GraphSession(_graphs("plain", 4)[0], execution=execution)
     assert jsess.resolved_execution("fused", "device") == "per_block"
+    # A reference-style call gives the reference's answer wherever the
+    # reference does not resolve "auto" by its own backend.
+    for override in ("per_block", "packed", "packed_kernel"):
+        for s in ("spu", "dpu", "mpu", "fused"):
+            for residency in ("device", "host"):
+                assert sess.resolved_execution(s, residency, override) == (
+                    jsess.resolved_execution(s, residency, override)
+                )

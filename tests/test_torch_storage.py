@@ -312,14 +312,25 @@ def test_read_policy_retries_heals_and_quarantines(tmp_path, monkeypatch, torn):
 
 
 def test_read_policy_validates_and_attach_faults_is_not_ported(tmp_path):
+    """``attach_faults`` is ported (ROADMAP A10, second part): an injector's
+    decisions reach the checksum reads, and attaching clears the memo of
+    verified segments."""
+    from repro_torch.reliability import FaultPlan
+
     for bad in ({"max_retries": -1}, {"backoff_s": -1.0}, {"backoff_factor": 0.5}):
         with pytest.raises(ValueError):
             ts.ReadPolicy(**bad)
     _, tg = _graphs("ring", False, 2)
     store = ts.write_dsss(tg, str(tmp_path / "g.dsss"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10, second part"):
-        store.attach_faults(None)
+    store.attach_faults(None)
     store.ensure_segment("p_src")  # no policy: a no-op
+    healing = ts.open_dsss(str(tmp_path / "g.dsss"), read_policy=ts.ReadPolicy(max_retries=2, backoff_s=0.0))
+    healing.ensure_segment("p_src")
+    assert "p_src" in healing._verified
+    healing.attach_faults(FaultPlan.storage_short("p_src", times=1).injector())
+    assert not healing._verified
+    healing.ensure_segment("p_src")  # the first read comes up short, the re-read heals
+    assert healing.healed_reads == 1 and not healing.quarantined
 
 
 def test_cli_matches_the_reference(tmp_path, capsys):
@@ -340,8 +351,12 @@ def test_cli_matches_the_reference(tmp_path, capsys):
     assert t_cli(["verify", str(tmp_path / "t.dsss")]) == 1
     assert "checksum mismatch" in capsys.readouterr().err
     assert t_cli(["info", str(tmp_path / "missing.dsss")]) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A10, second part"):
-        t_cli(["verify", str(tmp_path / "t.dsss"), "--repair", "--source", str(text)])
+    # verify --repair is ported (ROADMAP A10, second part): the rebuilt
+    # container is byte for byte the JAX package's build of the same text.
+    assert t_cli(["verify", str(tmp_path / "t.dsss"), "--repair", "--source", str(text)]) == 0
+    assert t_cli(["verify", str(tmp_path / "t.dsss")]) == 0
+    assert j_cli(["build", str(text), str(tmp_path / "j16.dsss"), "--P", "4"]) == 0
+    _same_file(str(tmp_path / "t.dsss"), str(tmp_path / "j16.dsss"))
 
 
 def test_store_info_matches(tmp_path):
