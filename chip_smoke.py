@@ -97,6 +97,39 @@ Phases, each printing one JSON line:
     under ``attn_impl="pallas"`` and ``"ref"``: the greedy tokens must be
     equal, or part only where the top-2 logit gap is below 1e-4 of the
     logit.
+12. distributed (after wcc_scc, on the scale-22 graph): the 2-D
+    partitioned PageRank of ``repro_torch.core.distributed``. The grids
+    1 × 1 and 2 × 2 are built once (``build_device_blocks``) and each
+    block written to a file under ``build/``; gloo ranks spawned on card 0
+    (one card shared by the ranks, the collectives through gloo: not a
+    multi-GPU measurement) run ``distributed_pagerank`` from their own
+    block for 12 iterations, ``tol=0``, on the meshes (1, 1), (2, 2) twice
+    and (2, 1, 2) with source axes ("pod", "data"). Checks: every rank
+    returns the same vector; within 1e-6 max abs of the fused per-block
+    PageRank's 12 sweeps; sums to 1 within 1e-4; L1 within 1e-4 of the
+    float64 power iteration's 12; the two (2, 2) runs give the same bits;
+    each rank's first hub is bitwise ``subshard_update_ref`` on the card;
+    B2 launched ranks × iterations times. Prints each mesh's ms per
+    iteration (the step alone, staging outside the clock) and its split
+    into ToHub (B2), ``all_reduce`` and ``all_gather`` (a second run with
+    the device synchronised around each), per-block edges, E_max and each
+    rank's peak device memory.
+13. lm_families (after lm_serving_f32, gemma-2b freed): deepseek-moe-16b
+    at full width and depth (28 layers, bf16, random weights from seed 0)
+    and qwen2-moe-a2.7b, falcon-mamba-7b and recurrentgemma-9b at full
+    width with 2, 4 and 3 layers (the last one ``(recurrent, recurrent,
+    local)`` pattern), each through ``ServeEngine(max_batch=8)`` on
+    lm_serving's 12 requests: B3 once per attention layer and bucket
+    (falcon-mamba launches none), ids in range, the same tokens as a warm
+    run, prefill logits within 2**-4 of the largest |logit| under
+    ``"ref"``; prefill and decode ms, tokens/s, peak memory, the capacity
+    path's dropped fraction; B3 per launch at the MoE families' (MHA,
+    D = 128) and recurrentgemma's (MQA, D = 256, window 2048) buckets
+    beside its plain version, SDPA and its bound. Then each in float32
+    (no TF32) at a cut depth (deepseek-moe 2 layers): prefill of 192
+    tokens then 8 decode steps within 1e-3 of the largest |logit| of
+    ``forward`` over the 200, and greedy tokens under ``"pallas"`` and
+    ``"ref"`` equal (or parting only at a top-2 gap below 1e-4).
 
 The engine's surface above the session, on the main path's scale-22 graph
 (after phase 3, 6 and 8; each with every count set to 0 just before it):
@@ -191,7 +224,9 @@ reliability and graph_serving, by path in ``launches_by_path``; on the host and 
 slab and streamed chunk; ``host_path`` gives its launches and ms per sweep
 beside the pinned-copy bound, ``disk_path`` its launches and the cold and
 warm ms per sweep), time, plain time, bound and library time; B2's are the pass
-entry's, with ``calls_ms``/``calls_launches`` for the per-call form.
+entry's, with ``calls_ms``/``calls_launches`` for the per-call form, and its
+launches by path add the distributed phase's (with each mesh's ms per
+iteration); B3's add lm_families' (with its times at the new shapes).
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 and the script exits non-zero. Without a CUDA device it exits non-zero
 before printing any result.
@@ -380,7 +415,10 @@ def flash_attention_vs_plain(dev) -> dict:
               ((1, 4, 2, 96, 32, 32), {"window": 8}),  # rows past 38 see no key
               ((8, 8, 1, 1024, 1024, 256), {}), ((4, 8, 1, 2048, 2048, 256), {}),  # gemma-2b
               ((1, 16, 8, 2048, 2048, 256), {"window": 4096, "softcap": 50.0}),  # gemma2-9b
-              ((1, 40, 8, 1024, 1024, 128), {})]  # qwen2.5-14b
+              ((1, 40, 8, 1024, 1024, 128), {}),  # qwen2.5-14b
+              ((8, 16, 16, 1024, 1024, 128), {}), ((4, 16, 16, 2048, 2048, 128), {}),  # the MoE families
+              ((8, 16, 1, 1024, 1024, 256), {"window": 2048}),  # recurrentgemma-9b's local layers
+              ((4, 16, 1, 2048, 2048, 256), {"window": 2048})]
     n = 0
     max_abs_err = 0.0
     t0 = time.perf_counter()
@@ -624,6 +662,229 @@ def lm_serving_f32(dev, cfg) -> None:
         peak_device_bytes=torch.cuda.max_memory_allocated(dev),
         peak_above_start_bytes=torch.cuda.max_memory_allocated(dev) - start_bytes,
     )
+
+
+# -- the MoE, Mamba and RG-LRU families on the serving path (ROADMAP A13.1) --
+# (architecture, layers served in bf16: None is the full depth, layers in
+# the float32 check). Widths are never cut.
+LM_FAMILIES = (
+    ("deepseek-moe-16b", None, 2),  # 28 layers, 16.4 B parameters; f32: the dense layer and one MoE layer
+    ("qwen2-moe-a2.7b", 2, 2),
+    ("falcon-mamba-7b", 4, 4),
+    ("recurrentgemma-9b", 3, 3),  # one (recurrent, recurrent, local) pattern
+)
+F32_PROMPT, F32_DECODE = 200, 8  # 1 × 200 tokens: the MoE's dropless path, past a Mamba chunk
+
+
+def cut(cfg, layers):
+    import dataclasses
+
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def family_serving(dev, smi, cfg) -> dict:
+    """ServeEngine over one family at full width in bf16, attn_impl="pallas"."""
+    import dataclasses
+
+    from repro_torch.kernels import dsss_spmv as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import packed_sweep as ps
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving.llm_demo import Request, ServeEngine
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    warm = serve(ServeEngine(cfg, params, max_batch=8), lm_requests(cfg, Request))
+    engine = ServeEngine(cfg, params, max_batch=8)
+    requests = lm_requests(cfg, Request)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    ps.launches = 0  # every count to 0 just before the family's serving path
+    dk.launches = 0
+    fa.launches = 0
+    t1 = time.perf_counter()
+    results = serve(engine, requests)
+    run_s = time.perf_counter() - t1
+    counts = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    attn_layers = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    want = len(LM_BUCKETS) * attn_layers
+    check(counts == {"packed_sweep": 0, "dsss_spmv": 0, "flash_attention": want},
+          f"{cfg.name}: launched {counts}; want {want} flash_attention launches (attention layers x buckets)")
+    check(sorted(results) == list(range(len(requests))), f"{cfg.name}: serving lost a request")
+    for rid, toks in results.items():
+        check(len(toks) == LM_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in toks),
+              f"{cfg.name} request {rid}: {len(toks)} tokens, ids {min(toks)}..{max(toks)}")
+    check(results == warm, f"{cfg.name}: greedy tokens differ between two runs of the engine")
+    # Each bucket's prefill logits against the same weights under attn_impl="ref"
+    # (as gemma-2b's). This untimed prefill of the served batches also records
+    # the capacity path's dropped share, which serving does not ask for.
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    logits_check = {}
+    by_len = {}
+    for r in requests:
+        by_len.setdefault(len(r.prompt), []).append(r.prompt)
+    dropped = []  # per MoE layer call on the capacity path
+    apply = moe_mod.moe_apply
+
+    def recording(moe, x, c, *, return_aux=True):
+        y, aux = apply(moe, x, c, return_aux=True)
+        if x.shape[0] * x.shape[1] > moe_mod.DENSE_PATH_MAX_TOKENS:
+            dropped.append(aux["dropped_fraction"])
+        return y, (aux if return_aux else {})
+
+    for length, prompts in by_len.items():
+        toks = torch.tensor(prompts, device=dev)
+        moe_mod.moe_apply = recording
+        try:
+            got = prefill(cfg, params, toks, length + LM_NEW_TOKENS + 1)[0].float()
+        finally:
+            moe_mod.moe_apply = apply
+        want_l = prefill(ref_cfg, params, toks, length + LM_NEW_TOKENS + 1)[0].float()
+        check(bool(torch.isfinite(got).all()), f"{cfg.name}: prefill logits not finite at {length}")
+        top = float(want_l.abs().max())
+        err = float((got - want_l).abs().max())
+        agree = float((got.argmax(-1) == want_l.argmax(-1)).float().mean())
+        check(err <= 2**-4 * top, f"{cfg.name}: prefill logits (pallas vs ref) differ by {err} at max |logit| {top}")
+        logits_check[length] = {"max_abs_diff": err, "max_abs_logit": top, "argmax_agree": agree}
+    stats = engine.stats
+    n_tokens = sum(len(t) for t in results.values())
+    out = {
+        "arch": cfg.name, "layers": cfg.num_layers, "params": cfg.num_params(), "launches": counts,
+        "b3_launches_expected": want,
+        "buckets": [[s["batch"], s["prompt_len"]] for s in stats],
+        "prefill_ms": {f"{s['batch']}x{s['prompt_len']}": 1e3 * (s["first_token_s"] - s["started_s"]) for s in stats},
+        "decode_ms_per_token": {f"{s['batch']}x{s['prompt_len']}": 1e3 * s["decode_s"] / s["decode_steps"]
+                                for s in stats},
+        "tokens_per_s": n_tokens / run_s, "run_s": run_s, "init_s": init_s,
+        "peak_device_bytes": peak, "peak_above_start_bytes": peak - start_bytes,
+        "weight_bytes": sum(t.numel() * t.element_size() for t in params.parameters()),
+        "prefill_logits_vs_ref": logits_check,
+    }
+    if dropped:
+        out["dropped_fraction"] = {"mean": float(torch.stack(dropped).mean()),
+                                   "max": float(torch.stack(dropped).max()), "moe_calls": len(dropped)}
+    if attn_layers == 0:
+        out["note"] = "attention-free: no B3 launch"
+    del params
+    return out
+
+
+def family_f32(dev, cfg) -> dict:
+    """float32, no TF32: prefill then decode gives forward's logits, and greedy
+    tokens agree under attn_impl "pallas" and "ref"."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.serving.llm_demo import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, F32_PROMPT))).to(dev)
+    want, _ = forward(cfg, params, toks)
+    cut_at = F32_PROMPT - F32_DECODE
+    got, cache = prefill(cfg, params, toks[:, :cut_at], F32_PROMPT + 1)
+    steps = [got]
+    for p in range(cut_at, F32_PROMPT - 1):
+        lg, cache = decode_step(cfg, params, cache, toks[:, p:p + 1], p)
+        steps.append(lg)
+    got = torch.cat(steps, 1).float()
+    want = want[:, cut_at - 1:F32_PROMPT - 1].float()
+    top = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= 1e-3 * top, f"{cfg.name} f32: prefill + decode off forward by {err} at max |logit| {top}")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, F32_PROMPT).tolist() for _ in range(2)]
+    results, launches = {}, {}
+    for impl in ("pallas", "ref"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        fa.launches = 0
+        reqs = [Request(i, p, max_new_tokens=F32_DECODE) for i, p in enumerate(prompts)]
+        results[impl] = serve(ServeEngine(c, params, max_batch=8), reqs)
+        launches[impl] = fa.launches
+    attn_layers = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    check(launches == {"pallas": attn_layers, "ref": 0}, f"{cfg.name} f32 serving launches {launches}")
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    parted = []
+    for rid, got_t in results["pallas"].items():
+        want_t = results["ref"][rid]
+        if got_t == want_t:
+            continue
+        step = next(i for i, (a, b) in enumerate(zip(got_t, want_t)) if a != b)
+        t = torch.tensor([prompts[rid] + want_t[:step]], device=dev)
+        lg = prefill(ref_cfg, params, t, t.shape[1] + 1)[0][0, 0, : cfg.vocab_size].float()
+        top2 = torch.topk(lg, 2).values
+        gap = float(top2[0] - top2[1])
+        parted.append({"request": rid, "step": step, "top2_gap": gap, "top_logit": float(top2[0])})
+        check(gap < 1e-4 * abs(float(top2[0])), f"{cfg.name} f32 request {rid} parts at step {step}, top-2 gap {gap}")
+    del params
+    return {"layers": cfg.num_layers, "decode_vs_forward_max_abs": err, "max_abs_logit": top,
+            "tokens_equal": not parted, "parted": parted, "launches": launches}
+
+
+def b3_shape_timing(dev, cfg) -> dict:
+    """B3 per launch at a family's bucket shapes (as attn_apply passes them)
+    beside its plain version, SDPA and its bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    window = cfg.window_size if "local" in cfg.pattern else None
+    per_bucket = {}
+    for count, length in LM_BUCKETS:
+        g = torch.Generator(device=dev).manual_seed(length)
+        q, k, v = (
+            torch.randn((count, length, h, d), generator=g, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+            for h in (hq, hkv, hkv)
+        )
+        kw = {"causal": True, "window": window}
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=10)
+        plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), reps=3)
+        # SDPA has no window; these prompts are no longer than the window, so
+        # causal attention is the same function.
+        check(window is None or length <= window, "a window SDPA would not apply")
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=10)
+        nbytes, ops = b3_work(q, k, window=window)
+        bound, bound_by, _ = b3_bound_ms(nbytes, ops, q.dtype)
+        per_bucket[f"{count}x{length}"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "bound_by": bound_by,
+            "share_of_bound": bound / ms, "tflops": ops / ms / 1e9, "min_bytes": nbytes, "ops": ops,
+        }
+        del q, k, v
+    return {"Hq": hq, "Hkv": hkv, "D": d, "window": window, "per_bucket": per_bucket}
+
+
+def lm_families(dev, smi) -> tuple[int, dict]:
+    """deepseek-moe-16b at full width and depth, the other three families at
+    full width and cut depth, in bf16; then each at a cut depth in float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    served, f32, timing = {}, {}, {}
+    launches = 0
+    for arch, layers, f32_layers in LM_FAMILIES:
+        cfg = dataclasses.replace(cut(get_config(arch), layers), attn_impl="pallas")
+        t1 = time.perf_counter()
+        served[arch] = family_serving(dev, smi, cfg)
+        launches += served[arch]["launches"]["flash_attention"]
+        if any(k in ("global", "local") for k in cfg.pattern):
+            timing[arch] = b3_shape_timing(dev, cfg)
+        _empty_cache(dev)
+        f32[arch] = family_f32(dev, dataclasses.replace(cut(get_config(arch), f32_layers), dtype="float32",
+                                                        attn_impl="pallas"))
+        _empty_cache(dev)
+        served[arch]["phase_s"] = time.perf_counter() - t1
+    emit("lm_families", served=served, float32=f32, b3_timing=timing, b3_launches=launches,
+         phase_s=time.perf_counter() - t0, nvidia_smi=smi)
+    return launches, timing
 
 
 def ms_of(fn):
@@ -1610,6 +1871,230 @@ def graph_serving(core, ps, dk, fa, g, sess, pr, budget, bfs, bfs_plans, path, s
                    "p99_total_s": st.p99_total_s}
 
 
+# -- the 2-D partitioned PageRank over gloo ranks on one card (ROADMAP A12) --
+DIST_ITERS = 12
+# (label, shape, axes, source axes); the last axis is the destination axis.
+DIST_MESHES = {
+    1: (("1x1", (1, 1), ("data", "model"), ("data",)),),
+    4: (("2x2", (2, 2), ("data", "model"), ("data",)),
+        ("2x2_again", (2, 2), ("data", "model"), ("data",)),
+        ("2x1x2", (2, 1, 2), ("pod", "data", "model"), ("pod", "data"))),
+}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _empty_cache(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def distributed_rank(rank: int, jobs, n_pads, block_dir: str, device: str) -> dict:
+    """One gloo rank (spawned): each mesh of ``jobs`` through
+    ``distributed_pagerank`` on this rank's block file (``n_pads`` maps a
+    grid ``(R, C)`` to its ``n_pad``), then the step that run made, timed
+    per iteration, and again with the device synchronised around ToHub and
+    each collective to split it. Every rank of this machine uses card 0."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import dsss_spmv as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import packed_sweep as ps
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out = {}
+    for label, shape, axes, src_axes in jobs:
+        mesh = make_mesh(shape, axes, device=device)
+        R, C = tdist._grid(mesh, src_axes, axes[-1])
+        place = tdist.Placement.on(mesh, n_pads[R, C], src_axes=src_axes, dst_axis=axes[-1])
+        blk = tdist.RankBlock.load(os.path.join(block_dir, f"{R}x{C}_{place.row}_{place.col}.npz"))
+        first, made = {}, {}
+        kernel = dk.subshard_update
+
+        def recording(*args, **kw):
+            hub = kernel(*args, **kw)
+            if not first:
+                first.update(args=(args[0].clone(), *args[1:]), kw=kw, hub=hub.clone())
+            return hub
+
+        def keeping(name, fn):  # the run's step and B2 operands, reused for timing
+            def call(*args, **kw):
+                made[name] = fn(*args, **kw)
+                return made[name]
+            return call
+
+        saved = tdist.make_pagerank_step, tdist.tohub_operands
+        dk.subshard_update = recording
+        tdist.make_pagerank_step, tdist.tohub_operands = keeping("step", saved[0]), keeping("ops", saved[1])
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            ps.launches = 0  # every count to 0 just before the distributed path
+            dk.launches = 0
+            fa.launches = 0
+            t0 = time.perf_counter()
+            ranks, iters = tdist.distributed_pagerank(blk, mesh, iters=DIST_ITERS, src_axes=src_axes,
+                                                      dst_axis=axes[-1], tol=0.0)
+            _sync(dev)
+            run_s = time.perf_counter() - t0
+            counts = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+        finally:
+            dk.subshard_update = kernel
+            tdist.make_pagerank_step, tdist.tohub_operands = saved
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+        want = dk.subshard_update_ref(*first["args"], **first["kw"])
+        hub_bitwise = torch.equal(first["hub"].view(torch.int32), want.view(torch.int32))
+        del first, want
+        (step, run_place), ops = made["step"], made["ops"]
+        check(run_place == place, f"{label}: rank {rank} placed at {run_place}, its block file at {place}")
+
+        # ms per iteration through the same step (staging outside the clock)
+        x0 = torch.zeros(blk.n_pad, device=dev)
+        x0[: blk.n] = 1.0 / blk.n
+        x0 = x0[place.row_slice].contiguous()
+        dang = torch.from_numpy(blk.dangling).to(dev)
+
+        def loop():
+            x = x0
+            for _ in range(DIST_ITERS):
+                x, _ = step(x, dang, ops)
+            _sync(dev)
+
+        loop()  # warm
+        dist.barrier()
+        t0 = time.perf_counter()
+        loop()
+        ms_iter = 1e3 * (time.perf_counter() - t0) / DIST_ITERS
+        split = {"tohub": 0.0, "all_reduce": 0.0, "all_gather": 0.0}
+
+        def timed(name, fn):
+            def call(*args, **kw):
+                _sync(dev)
+                t = time.perf_counter()
+                res = fn(*args, **kw)
+                _sync(dev)
+                split[name] += 1e3 * (time.perf_counter() - t) / DIST_ITERS
+                return res
+            return call
+
+        saved = tdist.tohub, dist.all_reduce, dist.all_gather
+        tdist.tohub, dist.all_reduce, dist.all_gather = (
+            timed("tohub", saved[0]), timed("all_reduce", saved[1]), timed("all_gather", saved[2]))
+        try:
+            dist.barrier()
+            t0 = time.perf_counter()
+            loop()
+            ms_split_run = 1e3 * (time.perf_counter() - t0) / DIST_ITERS
+        finally:
+            tdist.tohub, dist.all_reduce, dist.all_gather = saved
+        out[label] = {
+            "rank": rank, "block": [place.row, place.col], "edges": int(len(blk.src_local)),
+            "e_max": blk.e_max, "hub_slots": ops.num_slots, "iterations": iters, "launches": counts,
+            "first_hub_bitwise": hub_bitwise, "run_s": run_s, "ms_per_iteration": ms_iter,
+            "split_ms_per_iteration": split, "split_run_ms_per_iteration": ms_split_run,
+            "peak_device_bytes": peak, "sha256": hashlib.sha256(ranks.tobytes()).hexdigest(),
+            "ranks": ranks if rank == 0 else None,
+        }
+        del step, ops, made, blk, mesh
+        dist.barrier()
+    return out
+
+
+def distributed(el, fused12, p12, smi, build_root, device="cuda") -> tuple[int, dict]:
+    """The 2-D partitioned PageRank at scale 22 on gloo ranks sharing one card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import distributed as tdist
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="distributed-", dir=build_root)
+    blocks_info, n_pads = {}, {}
+    try:
+        for R, C in ((1, 1), (2, 2)):
+            t1 = time.perf_counter()
+            blocks = tdist.build_device_blocks(el, R, C)
+            build_s = time.perf_counter() - t1
+            n_pads[R, C] = blocks.n_pad
+            for r in range(R):
+                for c in range(C):
+                    blocks.rank_block(r, c, el.out_degree).save(os.path.join(tmp, f"{R}x{C}_{r}_{c}.npz"))
+            blocks_info[f"{R}x{C}"] = {"edges": blocks.edge_counts().tolist(), "e_max": int(blocks.weight.shape[-1]),
+                                       "n_pad": blocks.n_pad, "build_s": build_s,
+                                       "build_and_write_s": time.perf_counter() - t1}
+            del blocks
+        host_s = time.perf_counter() - t0
+        results = {}
+        for world, jobs in DIST_MESHES.items():
+            t1 = time.perf_counter()
+            per_rank = tdist.spawn_gloo(distributed_rank, world, jobs, n_pads, tmp, device)
+            spawn_s = time.perf_counter() - t1
+            for label, *_ in jobs:
+                results[label] = {"ranks_out": [r[label] for r in per_rank], "group_s": spawn_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = 0
+    summary = {}
+    for label, res in results.items():
+        rows = res["ranks_out"]
+        world = len(rows)
+        ranks = rows[0]["ranks"]
+        check(all(r["sha256"] == rows[0]["sha256"] for r in rows), f"{label}: the ranks returned other vectors")
+        check(all(r["iterations"] == DIST_ITERS for r in rows), f"{label}: iterations {[r['iterations'] for r in rows]}")
+        check(all(r["first_hub_bitwise"] for r in rows), f"{label}: a rank's first hub != subshard_update_ref")
+        counts = [r["launches"] for r in rows]
+        check(all(c["packed_sweep"] == 0 and c["flash_attention"] == 0 for c in counts),
+              f"{label}: another kernel launched: {counts}")
+        n_b2 = sum(c["dsss_spmv"] for c in counts)
+        check(n_b2 == world * DIST_ITERS, f"{label}: {n_b2} B2 launches for {world} ranks x {DIST_ITERS} iterations")
+        launches += n_b2
+        # Bars scaled to the values: a rank here is about 1/n (2.4e-7), so the
+        # reference selftest's 1e-6 max abs would pass a fault that moves every
+        # entry by a typical rank. The fused engine and the mesh sum in other
+        # orders, so an entry differs by float32 rounding that grows with the
+        # number of terms it gathers: far below 1e-3 of the entry.
+        diff = np.abs(ranks.astype(np.float64) - fused12)
+        err = float(diff.max())
+        check(err < 1e-7, f"{label}: max abs {err} from the fused 12-sweep PageRank")
+        rel = float((diff / fused12).max())  # every rank is at least (1 - d) / n > 0
+        check(rel < 1e-3, f"{label}: max relative difference {rel} from the fused 12-sweep PageRank")
+        total = float(ranks.astype(np.float64).sum())
+        check(abs(total - 1.0) < 2e-6, f"{label}: ranks sum to {total}")
+        l1 = float(np.abs(ranks.astype(np.float64) - p12).sum())
+        check(l1 < 2e-6, f"{label}: L1 {l1} from the float64 power iteration")
+        split = {k: [r["split_ms_per_iteration"][k] for r in rows] for k in ("tohub", "all_reduce", "all_gather")}
+        summary[label] = {
+            "ranks": world, "ms_per_iteration": [r["ms_per_iteration"] for r in rows],
+            "split_ms_per_iteration": split,
+            "split_run_ms_per_iteration": [r["split_run_ms_per_iteration"] for r in rows],
+            "blocks": [r["block"] for r in rows], "block_edges": [r["edges"] for r in rows],
+            "e_max": rows[0]["e_max"], "hub_slots": [r["hub_slots"] for r in rows],
+            "peak_device_bytes": [r["peak_device_bytes"] for r in rows],
+            "b2_launches": n_b2, "max_abs_vs_fused": err, "max_rel_vs_fused": rel,
+            "max_rank": float(fused12.max()), "sum": total, "l1_vs_float64": l1,
+            "run_s": [r["run_s"] for r in rows], "spawn_group_s": res["group_s"],
+        }
+    check(results["2x2"]["ranks_out"][0]["sha256"] == results["2x2_again"]["ranks_out"][0]["sha256"],
+          "two (2, 2) runs gave other bits")
+    emit("distributed", meshes=summary, blocks=blocks_info, host_blocks_s=host_s,
+         iterations=DIST_ITERS, b2_launches=launches, phase_s=time.perf_counter() - t0,
+         note="one card shared by the ranks, collectives through gloo: not a multi-GPU measurement",
+         nvidia_smi=smi)
+    return launches, {k: {"ms_per_iteration": max(v["ms_per_iteration"]),
+                          "split_ms_per_iteration": {s: max(t) for s, t in v["split_ms_per_iteration"].items()}}
+                      for k, v in summary.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -1944,6 +2429,11 @@ def main() -> None:
         p = (1 - pr.damping) / n + pr.damping * ((at64 @ (p * inv64)[:, None])[:, 0] + mass / n)
     l1 = float((torch.from_numpy(ref.astype(np.float64)).to(dev) - p).abs().sum())
     check(l1 < 1e-4, f"PageRank L1 distance to float64 power iteration {l1}")
+    p12 = p  # two more iterations: the distributed phase's 12
+    for _ in range(2):
+        mass = p12[outdeg == 0].sum()
+        p12 = (1 - pr.damping) / n + pr.damping * ((at64 @ (p12 * inv64)[:, None])[:, 0] + mass / n)
+    p12 = p12.cpu().numpy()
     del at64
 
     # The BFS batch against the plain version's run on the card, bitwise.
@@ -2204,6 +2694,8 @@ def main() -> None:
         bfs_run_ms=pb_bfs_run_ms, host_blocks_s=t_host_blocks,
         stage_and_warm_s=t_stage_blocks, peak_device_bytes=torch.cuda.max_memory_allocated(dev),
     )
+    # The fused engine's 12 sweeps: the distributed phase's bar.
+    fused12 = pb.run(core.ExecutionPlan(pr, strategy="fused", max_iters=12, tol=0.0)).attrs.astype(np.float64)
     baselines(core, ps, dk, fa, g, pb, pr, pb_runs["spu"].attrs, ref, smi)
     tile_bytes = sum(t.numel() * t.element_size() for t in tiles.values() if torch.is_tensor(t))
     host_launches, host_b1 = host_path(core, ps, dk, fa, dev, g, sess, pb, pr, budget, runs, ref, bfs,
@@ -2367,6 +2859,9 @@ def main() -> None:
     core.clear_session_cache()
     torch.cuda.empty_cache()
     ws_launches = wcc_scc(core, ps, dk, fa, el, g.P, smi)
+    # -- phase 12: the 2-D partitioned PageRank on gloo ranks (ROADMAP A12) ---
+    torch.cuda.empty_cache()
+    dist_launches, dist_b2 = distributed(el, fused12, p12, smi, build_root)
 
     # -- phases 9-11: the LM serving path and kernel B3 -----------------------
     del g, el
@@ -2376,6 +2871,9 @@ def main() -> None:
     b3 = lm_serving(dev, smi, lm_cfg)
     torch.cuda.empty_cache()
     lm_serving_f32(dev, dataclasses.replace(lm_cfg, dtype="float32"))
+    # -- phase 13: the MoE, Mamba and RG-LRU families (ROADMAP A13 item 1) ----
+    torch.cuda.empty_cache()
+    fam_launches, fam_b3 = lm_families(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "packed_sweep",
@@ -2403,7 +2901,9 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dsss_spmv.cu",
         "replaces": "src/repro/kernels/dsss_spmv.py:70",
-        "launches": pass_launches,
+        "launches": pass_launches + dist_launches,
+        "launches_by_path": {"subshard_kernel_path": pass_launches, "distributed": dist_launches},
+        "distributed": dist_b2,
         "max_abs_err": b2_max_abs_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
@@ -2417,7 +2917,9 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": b3["launches"],
+        "launches": b3["launches"] + fam_launches,
+        "launches_by_path": {"lm_serving": b3["launches"], "lm_families": fam_launches},
+        "lm_families": fam_b3,
         "max_abs_err": b3_check["max_abs_err"],
         "ms": b3["ms"],
         "plain_ms": b3["plain_ms"],

@@ -97,7 +97,9 @@ def lm_params_from_numpy(cfg, tree: dict, device: str | torch.device | None = No
     with a leading dimension ``nb``, pattern position ``pos`` of each scanned
     block, and layer ``b`` of it is layer ``len(pre) + b·len(pattern) + pos``.
     Each array is cast as the port stores it (``cfg.dtype`` for matrices,
-    ``cfg.param_dtype`` for norm scales), rounding to nearest even.
+    ``cfg.param_dtype`` for norm scales and for what the reference reads in
+    float32: the MoE router, Mamba's ``A_log`` and ``D``, the RG-LRU gates),
+    rounding to nearest even.
     ``device=None`` is the CUDA card and raises without one.
     """
     from repro_torch.models.transformer import Transformer, _plan

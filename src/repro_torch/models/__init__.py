@@ -1,4 +1,4 @@
-"""The LM wing's models, dense family (port of the JAX package's ``repro.models``)."""
+"""The LM wing's models: dense, MoE, RG-LRU hybrid and Mamba (port of the JAX package's ``repro.models``)."""
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import (
     Block,

@@ -12,7 +12,7 @@ for a full sequence, chosen as the reference chooses them (``attn_apply``):
 
 Decode (one query against a cache) is a grouped einsum that never repeats
 the KV heads. The reference's sharding constraints are no-ops without a
-device mesh and are left out (multi-GPU is ROADMAP A12).
+device mesh and are left out (the sharding rules are ROADMAP A13 item 4).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, rope
+from repro_torch.models.layers import dense_init, rope, weight
 
 __all__ = [
     "Attention",
@@ -34,10 +34,6 @@ __all__ = [
 NEG_INF = -1e30
 
 
-def _weight(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
-
-
 class Attention(nn.Module):
     """The projections of one attention layer, in the reference's layouts:
     ``wq (d, H, Dh)``, ``wk``/``wv (d, KV, Dh)``, ``wo (H, Dh, d)``, and with
@@ -47,14 +43,14 @@ class Attention(nn.Module):
         super().__init__()
         d = d_model or cfg.d_model
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        self.wq = _weight((d, h, hd), dtype, device)
-        self.wk = _weight((d, kv, hd), dtype, device)
-        self.wv = _weight((d, kv, hd), dtype, device)
-        self.wo = _weight((h, hd, d), dtype, device)
+        self.wq = weight((d, h, hd), dtype, device)
+        self.wk = weight((d, kv, hd), dtype, device)
+        self.wv = weight((d, kv, hd), dtype, device)
+        self.wo = weight((h, hd, d), dtype, device)
         if cfg.qkv_bias:
-            self.bq = _weight((h, hd), dtype, device)
-            self.bk = _weight((kv, hd), dtype, device)
-            self.bv = _weight((kv, hd), dtype, device)
+            self.bq = weight((h, hd), dtype, device)
+            self.bk = weight((kv, hd), dtype, device)
+            self.bv = weight((kv, hd), dtype, device)
 
 
 @torch.no_grad()

@@ -9,14 +9,23 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 __all__ = [
+    "weight",
     "dense_init",
     "embed_init",
     "rmsnorm",
     "rope",
+    "MLP",
+    "mlp_init",
     "mlp_apply",
 ]
+
+
+def weight(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised parameter that keeps no gradient (the port serves)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
 def dense_init(
@@ -60,6 +69,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> t
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """``wi (d, 2·ff)`` holds ``[gate; up]`` for GeGLU/SwiGLU, ``(d, ff)`` for
+    the plain GELU MLP; ``wo (ff, d)``."""
+
+    def __init__(self, d: int, ff: int, activation: str, *, dtype, device):
+        super().__init__()
+        self.wi = weight((d, ff if activation == "gelu_plain" else 2 * ff), dtype, device)
+        self.wo = weight((ff, d), dtype, device)
+
+
+@torch.no_grad()
+def mlp_init(mlp: MLP, generator: torch.Generator) -> MLP:
+    """Fill ``mlp`` as the reference's ``mlp_init`` draws it: LeCun normal
+    ``wi`` over ``d`` inputs and ``wo`` over ``ff``."""
+    ff = mlp.wo.shape[0]
+    mlp.wi.copy_(dense_init(tuple(mlp.wi.shape), generator))
+    mlp.wo.copy_(dense_init(tuple(mlp.wo.shape), generator, fan_in=ff))
+    return mlp
 
 
 def mlp_apply(wi: torch.Tensor, wo: torch.Tensor, x: torch.Tensor, activation: str) -> torch.Tensor:

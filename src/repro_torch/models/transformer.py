@@ -1,23 +1,29 @@
-"""Transformer assembly for the dense family: blocks, forward, prefill, decode.
+"""Transformer assembly: blocks, forward, prefill, decode.
 
-Port of the JAX package's ``repro.models.transformer``, dense layers only
-(``"global"`` and ``"local"`` attention with a gated or plain MLP). The
-reference keeps its parameters as a tree whose layers are stacked for
-``lax.scan``; the port keeps them as a :class:`Transformer` module whose
-``layers`` are one :class:`Block` per layer, in layer order. The
-reference's function names stay, as thin functions over these modules.
+Port of the JAX package's ``repro.models.transformer`` for the decoder
+families: dense (``"global"``/``"local"`` attention with a gated or plain
+MLP), MoE (``models/moe.py``, with deepseek-moe's leading dense layers),
+RecurrentGemma's ``(recurrent, recurrent, local)`` pattern
+(``models/rglru.py``) and Mamba (``"ssm"`` layers, ``models/ssm.py``, no
+MLP). The reference keeps its parameters as a tree whose layers are
+stacked for ``lax.scan``; the port keeps them as a :class:`Transformer`
+module whose ``layers`` are one :class:`Block` per layer, in layer order
+(the reference's leading, scanned and trailing layers one after another).
+The reference's function names stay, as thin functions over these
+modules.
 
 Weights. The reference stores parameters in ``cfg.param_dtype`` (float32)
 and casts each matrix to ``cfg.dtype`` at every use. The port stores the
 matrices, biases and embeddings in ``cfg.dtype`` once they are loaded; the
-cast rounds to nearest even either way, so the numbers are the same. The
-norm scales stay in ``cfg.param_dtype``, because the reference reads them
-in float32. Nothing here keeps a gradient: the port serves (training is
-ROADMAP A13).
+cast rounds to nearest even either way, so the numbers are the same. What
+the reference reads in float32 stays in ``cfg.param_dtype``: the norm
+scales, the MoE router, Mamba's ``A_log`` and ``D``, and the RG-LRU gates
+(``wa``, ``ba``, ``wx``, ``bx``, ``lambda``). Nothing here keeps a
+gradient: the port serves (training is ROADMAP A13 item 3).
 
-Not ported yet (ROADMAP A13), and refused with ``NotImplementedError``:
-recurrent (RG-LRU) and SSM layers, MoE, the encoder-decoder and the vision
-stub.
+Not ported yet (ROADMAP A13 item 2), and refused with
+``NotImplementedError``: the encoder-decoder (whisper) and the vision stub
+(internvl2).
 """
 from __future__ import annotations
 
@@ -26,6 +32,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (
     Attention,
     attn_apply,
@@ -33,7 +42,7 @@ from repro_torch.models.attention import (
     attn_init,
     init_kv_cache,
 )
-from repro_torch.models.layers import dense_init, embed_init, mlp_apply, rmsnorm
+from repro_torch.models.layers import MLP, embed_init, mlp_apply, mlp_init, rmsnorm, weight
 
 __all__ = [
     "Block",
@@ -57,12 +66,8 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def _weight(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
-
-
 def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP A13)")
+    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP A13 item 2)")
 
 
 # ---------------------------------------------------------------------------
@@ -71,61 +76,64 @@ def _unported(what: str) -> NotImplementedError:
 class RMSNorm(nn.Module):
     def __init__(self, d: int, *, dtype, device):
         super().__init__()
-        self.scale = _weight((d,), dtype, device)  # gemma-style (1 + scale)
-
-
-class MLP(nn.Module):
-    """``wi (d, 2·ff)`` holds ``[gate; up]`` for GeGLU/SwiGLU, ``(d, ff)`` for
-    the plain GELU MLP; ``wo (ff, d)``."""
-
-    def __init__(self, d: int, ff: int, activation: str, *, dtype, device):
-        super().__init__()
-        self.wi = _weight((d, ff if activation == "gelu_plain" else 2 * ff), dtype, device)
-        self.wo = _weight((ff, d), dtype, device)
+        self.scale = weight((d,), dtype, device)  # gemma-style (1 + scale)
 
 
 class Block(nn.Module):
-    """One dense layer: ``ln1``, ``attn``, (``ln1_post``), ``ln2``, ``mlp``,
-    (``ln2_post``), named as in the reference's parameter tree."""
+    """One layer, named as in the reference's parameter tree: ``ln1``, then
+    ``attn`` (``"global"``/``"local"``), ``rec`` (``"recurrent"``) or ``ssm``
+    (``"ssm"``, which has nothing else); (``ln1_post``), ``ln2``, ``moe`` or
+    ``mlp``, (``ln2_post``). ``dense_ff`` makes a dense layer of that width
+    in an MoE model (deepseek-moe's leading layers)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, *, device):
+    def __init__(self, cfg: ModelConfig, kind: str, *, device, dense_ff: int | None = None):
         super().__init__()
-        if kind in ("recurrent", "ssm"):
-            raise _unported(f"the {kind!r} layer kind")
-        if kind not in ("global", "local"):
+        if kind not in ("global", "local", "recurrent", "ssm"):
             raise ValueError(f"unknown layer kind {kind!r}")
         self.kind = kind
         d, wd, nd = cfg.d_model, _dtype(cfg), _pdtype(cfg)
         self.ln1 = RMSNorm(d, dtype=nd, device=device)
-        self.attn = Attention(cfg, dtype=wd, device=device)
+        if kind == "ssm":
+            self.ssm = ssm_lib.Mamba(cfg, device=device)
+            return  # the Mamba block subsumes the MLP
+        if kind == "recurrent":
+            self.rec = rglru_lib.RGLRU(cfg, device=device)
+        else:
+            self.attn = Attention(cfg, dtype=wd, device=device)
         if cfg.post_norm:
             self.ln1_post = RMSNorm(d, dtype=nd, device=device)
         self.ln2 = RMSNorm(d, dtype=nd, device=device)
-        self.mlp = MLP(d, cfg.d_ff, cfg.activation, dtype=wd, device=device)
+        if cfg.moe is not None and dense_ff is None:
+            self.moe = moe_lib.MoE(cfg, device=device)
+        else:
+            self.mlp = MLP(d, dense_ff or cfg.d_ff, cfg.activation, dtype=wd, device=device)
         if cfg.post_norm:
             self.ln2_post = RMSNorm(d, dtype=nd, device=device)
 
 
 class Transformer(nn.Module):
-    """The parameters of a dense decoder LM. Built with uninitialised weights:
+    """The parameters of a decoder LM. Built with uninitialised weights:
     :func:`init_params` draws them, ``convert.lm_params_from_numpy`` loads
     them. ``device=None`` is the CUDA card and raises without one."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.moe is not None:
-            raise _unported("MoE (models/moe.py)")
         if cfg.is_enc_dec:
             raise _unported("the encoder-decoder (whisper)")
         if cfg.vision is not None:
             raise _unported("the vision stub (internvl2)")
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed = _weight((cfg.vocab_padded, cfg.d_model), _dtype(cfg), dev)
+        self.embed = weight((cfg.vocab_padded, cfg.d_model), _dtype(cfg), dev)
         self.final_norm = RMSNorm(cfg.d_model, dtype=_pdtype(cfg), device=dev)
         if not cfg.tie_embeddings:
-            self.lm_head = _weight((cfg.vocab_padded, cfg.d_model), _dtype(cfg), dev)
-        self.layers = nn.ModuleList(Block(cfg, kind, device=dev) for kind in cfg.layer_kinds())
+            self.lm_head = weight((cfg.vocab_padded, cfg.d_model), _dtype(cfg), dev)
+        pre, _, _, _ = _plan(cfg)
+        dense_ff = cfg.moe.first_dense_ff if cfg.moe else None
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, device=dev, dense_ff=dense_ff if i < len(pre) else None)
+            for i, kind in enumerate(cfg.layer_kinds())
+        )
 
     @property
     def device(self) -> torch.device:
@@ -154,10 +162,16 @@ def _plan(cfg: ModelConfig):
 @torch.no_grad()
 def init_block(block: Block, cfg: ModelConfig, generator: torch.Generator) -> Block:
     """Draw one block's weights as the reference does (zero norm scales)."""
-    attn_init(block.attn, cfg, generator)
-    d, ff = cfg.d_model, cfg.d_ff
-    block.mlp.wi.copy_(dense_init(tuple(block.mlp.wi.shape), generator))
-    block.mlp.wo.copy_(dense_init((ff, d), generator, fan_in=ff))
+    if block.kind == "ssm":
+        ssm_lib.mamba_init(block.ssm, cfg, generator)
+    elif block.kind == "recurrent":
+        rglru_lib.rglru_init(block.rec, cfg, generator)
+    else:
+        attn_init(block.attn, cfg, generator)
+    if hasattr(block, "moe"):
+        moe_lib.moe_init(block.moe, cfg, generator)
+    elif hasattr(block, "mlp"):
+        mlp_init(block.mlp, generator)
     for name in ("ln1", "ln1_post", "ln2", "ln2_post"):
         if hasattr(block, name):
             getattr(block, name).scale.zero_()
@@ -191,29 +205,45 @@ def init_params(
 # ---------------------------------------------------------------------------
 # Forward (scoring)
 # ---------------------------------------------------------------------------
-def _mlp(block: Block, h, cfg: ModelConfig):
-    return mlp_apply(block.mlp.wi, block.mlp.wo, h, cfg.activation)
-
-
-def _run_block(block: Block, x, cfg: ModelConfig, positions, *, causal: bool = True):
-    """One layer over a full sequence: ``(x, (k, v))``, the layer's keys and values."""
+def _run_block(block: Block, x, cfg: ModelConfig, positions, *, causal: bool = True,
+               return_state: bool = False, return_aux: bool = True):
+    """One layer over a full sequence: ``(x, state, aux)``. ``state`` is the
+    layer's keys and values (attention), or with ``return_state`` its
+    recurrent (``{"h", "conv"}``) or SSM (``{"conv", "ssm"}``) state after
+    the last position; ``aux`` the MoE's load-balance terms."""
     h = rmsnorm(block.ln1.scale, x, cfg.norm_eps)
-    h, kv = attn_apply(block.attn, h, cfg, positions, kind=block.kind, causal=causal)
+    state, aux = None, {}
+    if block.kind == "ssm":
+        out = ssm_lib.mamba_apply(block.ssm, h, cfg, return_state=return_state)
+        h, state = out if return_state else (out, None)
+        return x + h, state, aux
+    if block.kind == "recurrent":
+        out = rglru_lib.rglru_apply(block.rec, h, cfg, return_state=return_state)
+        h, state = out if return_state else (out, None)
+    else:
+        h, state = attn_apply(block.attn, h, cfg, positions, kind=block.kind, causal=causal)
     if cfg.post_norm:
         h = rmsnorm(block.ln1_post.scale, h, cfg.norm_eps)
     x = x + h
-    h = _mlp(block, rmsnorm(block.ln2.scale, x, cfg.norm_eps), cfg)
+    h, aux = _ffn(block, rmsnorm(block.ln2.scale, x, cfg.norm_eps), cfg, return_aux=return_aux)
     if cfg.post_norm:
         h = rmsnorm(block.ln2_post.scale, h, cfg.norm_eps)
-    return x + h, kv
+    return x + h, state, aux
+
+
+def _ffn(block: Block, h, cfg: ModelConfig, *, return_aux: bool):
+    if hasattr(block, "moe"):
+        return moe_lib.moe_apply(block.moe, h, cfg, return_aux=return_aux)
+    return mlp_apply(block.mlp.wi, block.mlp.wo, h, cfg.activation), {}
 
 
 def apply_block(block: Block, x, cfg: ModelConfig, kind: str, positions, *, causal: bool = True):
-    """Full-sequence block application. Returns ``(x, aux_losses)`` (``{}``
-    for dense layers)."""
+    """Full-sequence block application. Returns ``(x, aux_losses)`` (the
+    MoE's ``load_balance_loss`` and ``dropped_fraction``; ``{}`` otherwise)."""
     if kind != block.kind:
         raise ValueError(f"block is {block.kind!r}, asked to apply it as {kind!r}")
-    return _run_block(block, x, cfg, positions, causal=causal)[0], {}
+    x, _, aux = _run_block(block, x, cfg, positions, causal=causal)
+    return x, aux
 
 
 def _embed_tokens(params: Transformer, tokens, cfg: ModelConfig):
@@ -233,38 +263,56 @@ def _logits(params: Transformer, x, cfg: ModelConfig):
 
 def forward(cfg: ModelConfig, params: Transformer, tokens, *, return_hidden: bool = False):
     """Full-sequence forward. Returns ``(logits (B, S, Vpad), aux)``, or the
-    post-final-norm hidden states with ``return_hidden=True``."""
+    post-final-norm hidden states with ``return_hidden=True``. ``aux`` sums
+    each MoE layer's terms (``{}`` without MoE layers)."""
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_total: dict = {}
     for block in params.layers:
-        x, _ = _run_block(block, x, cfg, positions)
+        x, _, aux = _run_block(block, x, cfg, positions)
+        for k, v in aux.items():
+            aux_total[k] = aux_total.get(k, 0.0) + v
     x = rmsnorm(params.final_norm.scale, x, cfg.norm_eps)
     if return_hidden:
-        return x, {}
-    return _logits(params, x, cfg), {}
+        return x, aux_total
+    return _logits(params, x, cfg), aux_total
 
 
 # ---------------------------------------------------------------------------
 # Serving: cache init, prefill, decode
 # ---------------------------------------------------------------------------
+def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dev) -> dict:
+    dtype = _dtype(cfg)
+    if kind == "recurrent":
+        return {"rec": rglru_lib.init_rglru_state(cfg, batch, dtype, device=dev)}
+    if kind == "ssm":
+        return {"ssm": ssm_lib.init_mamba_state(cfg, batch, dtype, device=dev)}
+    return {"kv": init_kv_cache(cfg, batch, max_len, kind=kind, dtype=dtype, device=dev)}
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> list[dict]:
-    """One ``{"kv": {"k", "v"}}`` per layer, in layer order (the reference
-    stacks the scanned layers instead). ``device=None`` is the CUDA card."""
+    """One dict per layer, in layer order (the reference stacks the scanned
+    layers instead): ``{"kv": {"k", "v"}}`` for attention, ``{"rec": {"h",
+    "conv"}}`` for RG-LRU and ``{"ssm": {"conv", "ssm"}}`` for Mamba layers.
+    ``device=None`` is the CUDA card."""
     dev = resolve_device(device)
-    return [
-        {"kv": init_kv_cache(cfg, batch, max_len, kind=kind, dtype=_dtype(cfg), device=dev)}
-        for kind in cfg.layer_kinds()
-    ]
+    return [_init_block_cache(cfg, kind, batch, max_len, dev) for kind in cfg.layer_kinds()]
 
 
 def decode_block(block: Block, x, bcache: dict, cfg: ModelConfig, kind: str, pos: int):
     """One layer of one decode step; updates ``bcache`` in place."""
     h = rmsnorm(block.ln1.scale, x, cfg.norm_eps)
-    h, _ = attn_decode(block.attn, h, bcache["kv"], cfg, pos, kind=kind)
+    if kind == "ssm":
+        h, bcache["ssm"] = ssm_lib.mamba_decode(block.ssm, h, bcache["ssm"], cfg)
+        return x + h, bcache
+    if kind == "recurrent":
+        h, bcache["rec"] = rglru_lib.rglru_decode(block.rec, h, bcache["rec"], cfg)
+    else:
+        h, _ = attn_decode(block.attn, h, bcache["kv"], cfg, pos, kind=kind)
     if cfg.post_norm:
         h = rmsnorm(block.ln1_post.scale, h, cfg.norm_eps)
     x = x + h
-    h = _mlp(block, rmsnorm(block.ln2.scale, x, cfg.norm_eps), cfg)
+    h, _ = _ffn(block, rmsnorm(block.ln2.scale, x, cfg.norm_eps), cfg, return_aux=False)
     if cfg.post_norm:
         h = rmsnorm(block.ln2_post.scale, h, cfg.norm_eps)
     return x + h, bcache
@@ -300,7 +348,12 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens, max_len: int):
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)
     for block, bcache in zip(params.layers, cache):
-        x, (k, v) = _run_block(block, x, cfg, positions)
-        _fill_kv(bcache, k, v, block.kind)
+        x, state, _ = _run_block(block, x, cfg, positions, return_state=True, return_aux=False)
+        if block.kind == "ssm":
+            bcache["ssm"] = state
+        elif block.kind == "recurrent":
+            bcache["rec"] = state
+        else:
+            _fill_kv(bcache, *state, block.kind)
     x = rmsnorm(params.final_norm.scale, x[:, -1:, :], cfg.norm_eps)
     return _logits(params, x, cfg), cache

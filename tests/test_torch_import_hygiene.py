@@ -37,6 +37,10 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "import repro_torch.storage, repro_torch.storage.__main__, repro_torch.graph.io\n"
         "import repro_torch.reliability, repro_torch.reliability.repair, repro_torch.runtime.fault\n"
         "import repro_torch.serving, repro_torch.serving.server, repro_torch.serving.pool\n"
+        "import repro_torch.core.distributed, repro_torch.launch.mesh\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm, repro_torch.models.rglru\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
