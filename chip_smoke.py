@@ -77,8 +77,15 @@ Phases, each printing one JSON line:
    tests' cases (five shapes, windows, softcaps, non-causal), ragged
    lengths, rows that see no key, gemma-2b's two serving shapes, gemma2-9b's
    and qwen2.5-14b's; float32 (the CUDA-core body) and bfloat16 (the
-   tensor-core body). Tolerance: the JAX tests' own bounds, rtol = atol =
-   2e-5 (float32) and 3e-2 (bfloat16); a second launch gives the same bits.
+   tensor-core body), and whisper-medium's and internvl2-26b's shapes.
+   Tolerance: the JAX tests' own bounds, rtol = atol = 2e-5 (float32) and
+   3e-2 (bfloat16), and for bfloat16 each query row within 2**-6 of its
+   largest |value| (two bf16 steps); a second launch gives the same bits.
+   Then a tail-mask case at whisper's non-causal shapes (Sk = 1500, a
+   28-key tail tile): k and v are views of longer buffers whose rows past
+   Sk would dominate every softmax, and the scores of the real keys sit
+   near -8 so that a zero-filled tail left unmasked would too; both leaks,
+   made in the plain version, land over 10 times the row bar.
 10. lm_serving: the LM main path, ``ServeEngine(max_batch=8)`` over
     gemma-2b at full width and depth (18 layers, 2.51 B parameters, bf16
     weights drawn on the card from ``torch.Generator`` seed 0),
@@ -102,8 +109,9 @@ Phases, each printing one JSON line:
     1 × 1 and 2 × 2 are built once (``build_device_blocks``) and each
     block written to a file under ``build/``; gloo ranks spawned on card 0
     (one card shared by the ranks, the collectives through gloo: not a
-    multi-GPU measurement) run ``distributed_pagerank`` from their own
-    block for 12 iterations, ``tol=0``, on the meshes (1, 1), (2, 2) twice
+    multi-GPU measurement) make one step each (its placement names the
+    rank's block file), run ``distributed_pagerank`` with it for 12
+    iterations, ``tol=0``, on the meshes (1, 1), (2, 2) twice
     and (2, 1, 2) with source axes ("pod", "data"). Checks: every rank
     returns the same vector; within 1e-6 max abs of the fused per-block
     PageRank's 12 sweeps; sums to 1 within 1e-4; L1 within 1e-4 of the
@@ -130,6 +138,33 @@ Phases, each printing one JSON line:
     tokens then 8 decode steps within 1e-3 of the largest |logit| of
     ``forward`` over the 200, and greedy tokens under ``"pallas"`` and
     ``"ref"`` equal (or parting only at a top-2 gap below 1e-4).
+14. lm_encdec (after lm_families): whisper-medium at full width and depth
+    (24 encoder and 24 decoder layers) and internvl2-26b at full width and
+    depth (48 layers, 39.7 GB), bf16, ``attn_impl="pallas"``, through
+    ``Model.prefill`` (4 prompts of 64 tokens with 1500 seeded stub frames
+    each; 4 of 256 tokens behind 256 seeded stub patch embeddings) and 31
+    greedy ``decode`` steps: B3 once per attention in prefill (72: encoder,
+    self and cross; 48), none in decode; ids in range and equal to a warm
+    run's; whisper's cross cache filled; prefill logits within 2**-4 of
+    the largest |logit| under ``"ref"``. Then B3 at the new shapes (the
+    encoder's 1500 x 1500 and the cross S x 1500, non-causal, D = 64,
+    k and v from an einsum as the model makes them; internvl2's causal
+    256 + S, GQA 48/8) against its plain version, SDPA and its bound, and
+    each model in float32 at 2 (+ 2) layers: prefill + decode within 1e-3
+    of ``forward``, greedy tokens equal under "pallas" and "ref".
+15. training (last): gemma-2b at full width and depth, float32 masters and
+    bf16 compute, ``make_train_step`` with AdamW on ``SyntheticLM`` 8 x 1024
+    batches for 10 steps: finite, falling loss, step s, tokens/s, peak
+    memory; no kernel launched (B3 has no backward). The ``train()`` loop
+    at full width and 1 layer, in a spawned process of its own that alone
+    runs under ``torch.use_deterministic_algorithms`` and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, checkpoints in the system's
+    temporary directory: 16 steps uninterrupted; 12 with a
+    ``SimulatedFailure`` at step 10 (recovered from step 8); that directory
+    resumed to 16: losses, weights and moments bitwise the uninterrupted
+    run's. One whisper-medium step at full size with frames: encoder and
+    cross-attention gradients finite and non-zero. B3 under autograd
+    raises (``ops.attention`` and a "pallas" loss) without launching.
 
 The engine's surface above the session, on the main path's scale-22 graph
 (after phase 3, 6 and 8; each with every count set to 0 just before it):
@@ -226,7 +261,8 @@ beside the pinned-copy bound, ``disk_path`` its launches and the cold and
 warm ms per sweep), time, plain time, bound and library time; B2's are the pass
 entry's, with ``calls_ms``/``calls_launches`` for the per-call form, and its
 launches by path add the distributed phase's (with each mesh's ms per
-iteration); B3's add lm_families' (with its times at the new shapes).
+iteration); B3's add lm_families' and lm_encdec's (with their times at
+the new shapes).
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 and the script exits non-zero. Without a CUDA device it exits non-zero
 before printing any result.
@@ -339,6 +375,30 @@ LM_ARCH = "gemma-2b"  # full width and depth: 18 layers, d_model 2048, head 256,
 LM_BUCKETS = ((8, 1024), (4, 2048))  # (requests, prompt length): two buckets
 LM_NEW_TOKENS = 32
 B3_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # the JAX tests' bounds
+# bf16 also: each query row within two bf16 steps of its largest |value|
+# (one step is at most 2**-7 of it), whatever the values' scale.
+B3_BF16_ROW = 2.0**-6
+
+
+def b3_row_ratio(got, want) -> float:
+    """The largest, over query rows, of max |got - want| / max |want|."""
+    g, w = got.float(), want.float()
+    num = (g - w).abs().amax(-1)
+    return float((num / w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)).max())
+
+
+def b3_close(got, want, label: str) -> tuple[float, float | None]:
+    """Hold B3's output to its plain version's: the JAX tests' bound, and for
+    bf16 the row bar. Returns (max abs error, row ratio or None)."""
+    tol = B3_TOL[want.dtype]
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isclose(got.float(), want.float(), rtol=tol, atol=tol).all()),
+          f"flash_attention != plain (max abs err {err}): {label}")
+    if want.dtype != torch.bfloat16:
+        return err, None
+    ratio = b3_row_ratio(got, want)
+    check(ratio <= B3_BF16_ROW, f"flash_attention != plain: a row off by {ratio} of its largest |value|: {label}")
+    return err, ratio
 
 
 def b3_work(q, k, causal=True, window=None):
@@ -418,9 +478,13 @@ def flash_attention_vs_plain(dev) -> dict:
               ((1, 40, 8, 1024, 1024, 128), {}),  # qwen2.5-14b
               ((8, 16, 16, 1024, 1024, 128), {}), ((4, 16, 16, 2048, 2048, 128), {}),  # the MoE families
               ((8, 16, 1, 1024, 1024, 256), {"window": 2048}),  # recurrentgemma-9b's local layers
-              ((4, 16, 1, 2048, 2048, 256), {"window": 2048})]
+              ((4, 16, 1, 2048, 2048, 256), {"window": 2048}),
+              ((4, 16, 16, 1500, 1500, 64), {"causal": False}),  # whisper-medium's encoder
+              ((4, 16, 16, 64, 1500, 64), {"causal": False}),  # its cross-attention
+              ((4, 48, 8, 512, 512, 128), {})]  # internvl2-26b: 256 patches + 256 tokens
     n = 0
     max_abs_err = 0.0
+    readings = []
     t0 = time.perf_counter()
     before = fa.launches
     for dtype in (torch.float32, torch.bfloat16):
@@ -438,21 +502,64 @@ def flash_attention_vs_plain(dev) -> dict:
             label = f"{dtype} {(b, hq, hkv, sq, sk, d)} {kw}"
             check(torch.equal(got, again), f"flash_attention not deterministic: {label}")
             check(bool(torch.isfinite(got).all()), f"flash_attention not finite: {label}")
-            tol = B3_TOL[dtype]
-            close = torch.isclose(got.float(), want.float(), rtol=tol, atol=tol)
-            err = float((got.float() - want.float()).abs().max())
-            check(bool(close.all()), f"flash_attention != plain (max abs err {err}): {label}")
+            err, ratio = b3_close(got, want, label)
             if kw.get("window") == 8 and sq > sk:
                 check(bool((got[:, :, sk + 7:] == 0).all()), f"fully masked rows not 0: {label}")
+            if ratio is not None:
+                readings.append([(b, hq, hkv, sq, sk, d), kw, err, ratio])
             max_abs_err = max(max_abs_err, err)
             n += 1
             del q, k, v, got, again, want
+    tail = b3_tail_mask(dev)
     emit(
         "flash_attention_vs_plain", cases=n, launches=fa.launches - before,
-        max_abs_err=max_abs_err, tolerance={"float32": 2e-5, "bfloat16": 3e-2},
+        max_abs_err=max_abs_err, tolerance={"float32": 2e-5, "bfloat16": 3e-2, "bfloat16_row": B3_BF16_ROW},
+        bf16_max_row_ratio=max(r[3] for r in readings), bf16_readings=readings, tail_mask=tail,
         repeat_bitwise=True, seconds=time.perf_counter() - t0,
     )
-    return {"max_abs_err": max_abs_err, "cases": n}
+    return {"max_abs_err": max(max_abs_err, *(t["max_abs_err"] for t in tail)), "cases": n + len(tail)}
+
+
+def b3_tail_mask(dev) -> list:
+    """B3 non-causal at whisper's shapes (Sk = 1500 ends in a 28-key tile),
+    built so that a key past Sk shows: q ≈ +1 and k ≈ -1 give every score
+    near -8, with v ≈ 1; k and v are views of buffers of Sk + 64 rows whose
+    extra rows hold keys of score near +8 and values of 100. Reading past Sk
+    pulls the output toward 100; a zero-filled tail left unmasked (score 0,
+    value 0) pulls it toward 0. Both leaks, made in the plain version, are
+    checked to land far outside the bar."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = []
+    for name, (b, hq, hkv, sq, sk, d) in (("encoder", (4, 16, 16, 1500, 1500, 64)),
+                                          ("cross", (4, 16, 16, 64, 1500, 64))):
+        g = torch.Generator(device=dev).manual_seed(sq + sk)
+        q = 1 + 0.3 * torch.randn((b, hq, sq, d), generator=g, device=dev)
+        kb = -1 + 0.3 * torch.randn((b, hkv, sk + 64, d), generator=g, device=dev)
+        vb = 1 + 0.5 * torch.randn((b, hkv, sk + 64, d), generator=g, device=dev)
+        kb[:, :, sk:], vb[:, :, sk:] = 1.0, 100.0
+        tile = -(-sk // 64) * 64
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = q.to(dtype), kb.to(dtype), vb.to(dtype)
+            k, v = kd[:, :, :sk], vd[:, :, :sk]
+            got = fa.flash_attention(qd, k, v, causal=False)
+            want = fa.flash_attention_ref(qd, k, v, causal=False)
+            torch.cuda.synchronize()
+            label = f"tail mask {name} {dtype}"
+            err, ratio = b3_close(got, want, label)
+            leaks = {
+                "read_past_sk": fa.flash_attention_ref(qd, kd[:, :, :tile], vd[:, :, :tile], causal=False),
+                "zero_fill": fa.flash_attention_ref(
+                    qd, torch.cat([k, torch.zeros_like(kd[:, :, sk:tile])], 2),
+                    torch.cat([v, torch.zeros_like(vd[:, :, sk:tile])], 2), causal=False),
+            }
+            leak_ratio = {n: b3_row_ratio(lk, want) for n, lk in leaks.items()}
+            check(min(leak_ratio.values()) > 10 * B3_BF16_ROW, f"{label}: a leak would pass: {leak_ratio}")
+            out.append({"name": name, "dtype": str(dtype), "shape": [b, hq, hkv, sq, sk, d], "max_abs_err": err,
+                        "row_ratio": ratio, "leak_row_ratio": leak_ratio, "mean_out": float(want.float().mean()),
+                        "tma_copy": [fa._tma_rows(t) is not t for t in (k, v)] if dtype == torch.bfloat16 else None})
+            del got, want, leaks
+    return out
 
 
 def lm_requests(cfg, request_cls) -> list:
@@ -885,6 +992,506 @@ def lm_families(dev, smi) -> tuple[int, dict]:
     emit("lm_families", served=served, float32=f32, b3_timing=timing, b3_launches=launches,
          phase_s=time.perf_counter() - t0, nvidia_smi=smi)
     return launches, timing
+
+
+# -- whisper's encoder-decoder and internvl2's patch prefix (ROADMAP A13 item 2) --
+# (architecture, decoder layers in bf16: None is the full depth, layers in
+# the float32 check, prompts, prompt length). Widths are never cut.
+LM_ENCDEC = (
+    ("whisper-medium", None, 2, 4, 64),  # 24 + 24 layers; 1500 stub frames a prompt
+    ("internvl2-26b", None, 2, 4, 256),  # 48 layers, 19.9 B parameters; 256 patches before each prompt
+)
+ENCDEC_NEW_TOKENS = 32
+
+
+def _stub_inputs(cfg, dev, n, s, seed=1) -> tuple:
+    """Token ids (numpy seed 0) and the stub inputs of a config (frames or
+    patch embeddings, standard normal in bf16 from a seeded generator)."""
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (n, s))).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    extra = {}
+    if cfg.is_enc_dec:
+        extra["frames"] = torch.randn((n, cfg.encdec.encoder_frames, cfg.d_model), generator=g,
+                                      device=dev, dtype=torch.bfloat16)
+    if cfg.vision is not None:
+        extra["patch_embeds"] = torch.randn((n, cfg.vision.num_patches, cfg.d_model), generator=g,
+                                            device=dev, dtype=torch.bfloat16)
+    return toks, extra
+
+
+def _prefix_len(cfg) -> int:
+    return cfg.vision.num_patches if cfg.vision is not None else 0
+
+
+def b3_encdec_launches(cfg) -> int:
+    """B3 launches of one prefill: every attention layer, and for an
+    encoder-decoder every encoder layer and every cross-attention."""
+    n = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    return n + 2 * cfg.encdec.num_encoder_layers if cfg.is_enc_dec else n
+
+
+def encdec_serving(dev, cfg, n, s) -> dict:
+    """prefill of n prompts (with their frames or patches) then 32 greedy
+    decode steps, bf16, attn_impl="pallas"; prefill logits against "ref"."""
+    import dataclasses
+
+    from repro_torch.kernels import dsss_spmv as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import packed_sweep as ps
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    toks, extra = _stub_inputs(cfg, dev, n, s)
+    max_len = _prefix_len(cfg) + s + ENCDEC_NEW_TOKENS
+
+    def run():
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(params, toks, max_len, **extra)
+        _sync(dev)
+        prefill_ms = 1e3 * (time.perf_counter() - t1)
+        after_prefill = fa.launches
+        out = [logits[:, 0, : cfg.vocab_size].argmax(-1)]
+        t1 = time.perf_counter()
+        for i in range(ENCDEC_NEW_TOKENS - 1):
+            logits, cache = model.decode(params, cache, out[-1][:, None], _prefix_len(cfg) + s + i)
+            out.append(logits[:, 0, : cfg.vocab_size].argmax(-1))
+        ids = torch.stack(out, 1).cpu()
+        decode_ms = 1e3 * (time.perf_counter() - t1) / (ENCDEC_NEW_TOKENS - 1)
+        return ids, prefill_ms, decode_ms, after_prefill, cache
+
+    warm_ids, *_ = run()  # cuBLAS and the kernel warm up
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    ps.launches = 0  # every count to 0 just before the served prompts
+    dk.launches = 0
+    fa.launches = 0
+    ids, prefill_ms, decode_ms, after_prefill, cache = run()
+    counts = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    want = b3_encdec_launches(cfg)
+    check(counts == {"packed_sweep": 0, "dsss_spmv": 0, "flash_attention": want} and after_prefill == want,
+          f"{cfg.name}: launched {counts} ({after_prefill} in prefill); want {want} flash_attention in prefill "
+          "and none in decode")
+    check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"{cfg.name}: ids out of range")
+    check(torch.equal(ids, warm_ids), f"{cfg.name}: greedy tokens differ between two runs")
+    if cfg.is_enc_dec:
+        ck = cache[0]["cross_kv"]["k"]
+        check(tuple(ck.shape) == (n, cfg.encdec.encoder_frames, cfg.num_kv_heads, cfg.head_dim)
+              and bool(torch.isfinite(ck).all()), f"{cfg.name}: cross cache {tuple(ck.shape)}")
+    del cache
+    # The prefill's last logits against the same weights under attn_impl="ref"
+    # (the bound of gemma-2b's: 2**-4 of the largest |logit|).
+    got = model.prefill(params, toks, max_len, **extra)[0].float()
+    want_l = Model(dataclasses.replace(cfg, attn_impl="ref"), device=dev).prefill(
+        params, toks, max_len, **extra)[0].float()
+    check(bool(torch.isfinite(got).all()), f"{cfg.name}: prefill logits not finite")
+    top = float(want_l.abs().max())
+    err = float((got - want_l).abs().max())
+    agree = float((got.argmax(-1) == want_l.argmax(-1)).float().mean())
+    check(err <= 2**-4 * top, f"{cfg.name}: prefill logits (pallas vs ref) differ by {err} at max |logit| {top}")
+    out = {
+        "arch": cfg.name, "layers": cfg.num_layers, "params": cfg.num_params(), "prompts": n,
+        "prompt_len": s, "prefix": _prefix_len(cfg), "launches": counts, "b3_launches_expected": want,
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "tokens_per_s": n * ENCDEC_NEW_TOKENS / (prefill_ms + decode_ms * (ENCDEC_NEW_TOKENS - 1)) * 1e3,
+        "init_s": init_s, "peak_device_bytes": peak, "peak_above_start_bytes": peak - start_bytes,
+        "weight_bytes": sum(t.numel() * t.element_size() for t in params.parameters()),
+        "prefill_logits_vs_ref": {"max_abs_diff": err, "max_abs_logit": top, "argmax_agree": agree},
+    }
+    if cfg.is_enc_dec:
+        out["encoder_layers"] = cfg.encdec.num_encoder_layers
+        out["frames"] = cfg.encdec.encoder_frames
+    del params, got, want_l
+    return out
+
+
+def encdec_f32(dev, cfg, s=200, steps=8) -> dict:
+    """float32, no TF32, cut depth: prefill then decode gives forward's
+    logits, and greedy tokens agree under attn_impl "pallas" and "ref"."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks, extra = _stub_inputs(cfg, dev, 1, s)
+    extra = {k: v.float() for k, v in extra.items()}
+    pre = _prefix_len(cfg)
+    want, _ = model.apply(params, toks, **extra)
+    cut_at = s - steps
+    got, cache = model.prefill(params, toks[:, :cut_at], pre + s + 1, **extra)
+    out = [got]
+    for p in range(cut_at, s - 1):
+        lg, cache = model.decode(params, cache, toks[:, p:p + 1], pre + p)
+        out.append(lg)
+    got = torch.cat(out, 1).float()
+    want = want[:, pre + cut_at - 1:pre + s - 1].float()
+    top = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= 1e-3 * top, f"{cfg.name} f32: prefill + decode off forward by {err} at max |logit| {top}")
+    seqs, launches = {}, {}
+    for impl in ("pallas", "ref"):
+        m = Model(dataclasses.replace(cfg, attn_impl=impl), device=dev)
+        fa.launches = 0
+        lg, c = m.prefill(params, toks, pre + s + steps, **extra)
+        ids = [lg[:, 0, : cfg.vocab_size].argmax(-1)]
+        for i in range(steps - 1):
+            lg, c = m.decode(params, c, ids[-1][:, None], pre + s + i)
+            ids.append(lg[:, 0, : cfg.vocab_size].argmax(-1))
+        seqs[impl] = torch.stack(ids, 1)[0].tolist()
+        launches[impl] = fa.launches
+    check(launches == {"pallas": b3_encdec_launches(cfg), "ref": 0}, f"{cfg.name} f32 launches {launches}")
+    parted = []
+    if seqs["pallas"] != seqs["ref"]:
+        step = next(i for i, (a, b) in enumerate(zip(seqs["pallas"], seqs["ref"])) if a != b)
+        t = torch.cat([toks, torch.tensor([seqs["ref"][:step]], device=dev, dtype=toks.dtype)], 1)
+        ref_model = Model(dataclasses.replace(cfg, attn_impl="ref"), device=dev)
+        lg = ref_model.prefill(params, t, pre + t.shape[1] + 1, **extra)[0][0, 0, : cfg.vocab_size].float()
+        top2 = torch.topk(lg, 2).values
+        gap = float(top2[0] - top2[1])
+        parted.append({"step": step, "top2_gap": gap, "top_logit": float(top2[0])})
+        check(gap < 1e-4 * abs(float(top2[0])), f"{cfg.name} f32 parts at step {step}, top-2 gap {gap}")
+    del params, cache
+    return {"layers": cfg.num_layers, "decode_vs_forward_max_abs": err, "max_abs_logit": top,
+            "tokens_equal": not parted, "parted": parted, "launches": launches}
+
+
+def b3_encdec_timing(dev, cfg, n, s) -> dict:
+    """B3 per launch at the shapes of one prefill, as attn_apply passes them,
+    beside its plain version (max abs error), SDPA and its bound: whisper's
+    encoder (non-causal, 1500 × 1500) and cross-attention (non-causal,
+    ``s`` × 1500, k and v projected by einsum from an encoder output),
+    internvl2's causal ``256 + s`` with GQA 48/8. Reports whether the
+    wrapper copied any operand for TMA (``_tma_rows``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rows(length, heads):
+        return torch.randn((n, length, heads, d), generator=g, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+
+    shapes = {}
+    if cfg.is_enc_dec:
+        t = cfg.encdec.encoder_frames
+        shapes["encoder"] = (rows(t, hq), rows(t, hkv), rows(t, hkv), False)
+        enc = torch.randn((n, t, cfg.d_model), generator=g, device=dev, dtype=torch.bfloat16)
+        w = torch.randn((cfg.d_model, hkv, d), generator=g, device=dev, dtype=torch.bfloat16) * cfg.d_model**-0.5
+        k = torch.einsum("btd,dhk->bthk", enc, w).transpose(1, 2)  # as the cross step makes them
+        v = torch.einsum("btd,dhk->bthk", enc, w.flip(0)).transpose(1, 2)
+        shapes["cross"] = (rows(s, hq), k, v, False)
+    else:
+        length = _prefix_len(cfg) + s
+        shapes["prefix_causal"] = (rows(length, hq), rows(length, hkv), rows(length, hkv), True)
+    out = {}
+    for name, (q, k, v, causal) in shapes.items():
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_ref(q, k, v, causal=causal)
+        err, ratio = b3_close(got, want, f"{cfg.name} {name}")
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps=10)
+        plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=causal), reps=3)
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), reps=10)
+        nbytes, ops = b3_work(q, k, causal=causal)
+        bound, bound_by, _ = b3_bound_ms(nbytes, ops, q.dtype)
+        out[name] = {
+            "q": list(q.shape), "k": list(k.shape), "causal": causal, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
+            "tflops": ops / ms / 1e9, "max_abs_err": err, "row_ratio": ratio,
+            "tolerance": {"jax_tests": 3e-2, "row": B3_BF16_ROW},
+            "tma_copy": [fa._tma_rows(t) is not t for t in (q, k, v)], "min_bytes": nbytes, "ops": ops,
+        }
+        del got, want
+    return {"Hq": hq, "Hkv": hkv, "D": d, "shapes": out}
+
+
+def lm_encdec(dev, smi) -> tuple[int, dict]:
+    """whisper-medium at full width and depth and internvl2-26b at full width
+    (and depth), bf16, through prefill and decode; each in float32 at a cut
+    depth; B3 at their new shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    served, f32, timing = {}, {}, {}
+    launches = 0
+    for arch, layers, f32_layers, n, s in LM_ENCDEC:
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(cut(get_config(arch), layers), attn_impl="pallas")
+        served[arch] = encdec_serving(dev, cfg, n, s)
+        launches += served[arch]["launches"]["flash_attention"]
+        _empty_cache(dev)
+        timing[arch] = b3_encdec_timing(dev, cfg, n, s)
+        _empty_cache(dev)
+        f32_cfg = dataclasses.replace(cut(get_config(arch), f32_layers), dtype="float32", attn_impl="pallas")
+        if f32_cfg.is_enc_dec:
+            f32_cfg = dataclasses.replace(f32_cfg, encdec=dataclasses.replace(f32_cfg.encdec,
+                                                                              num_encoder_layers=f32_layers))
+        f32[arch] = encdec_f32(dev, f32_cfg)
+        _empty_cache(dev)
+        served[arch]["phase_s"] = time.perf_counter() - t1
+    emit("lm_encdec", served=served, float32=f32, b3_timing=timing, b3_launches=launches,
+         phase_s=time.perf_counter() - t0, nvidia_smi=smi)
+    return launches, timing
+
+
+# -- training with float32 master weights (ROADMAP A13 item 3) ---------------
+TRAIN_ARCH = "gemma-2b"  # full width and depth: 2.51 B parameters
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
+LOOP_LAYERS, LOOP_SEQ, LOOP_BATCH = 1, 512, 8  # the train() loop: full width, depth cut 18 -> 1
+
+
+def _no_kernel_counts(what: str, before: dict) -> None:
+    from repro_torch.kernels import dsss_spmv as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import packed_sweep as ps
+
+    counts = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+    check(counts == before, f"{what} launched a kernel: {counts} against {before}")
+
+
+def _zero_counts() -> dict:
+    from repro_torch.kernels import dsss_spmv as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import packed_sweep as ps
+
+    ps.launches = dk.launches = fa.launches = 0
+    return {"packed_sweep": 0, "dsss_spmv": 0, "flash_attention": 0}
+
+
+def train_steps(dev, cfg) -> dict:
+    """make_train_step with AdamW over float32 masters, bf16 compute, for
+    TRAIN_STEPS steps of SyntheticLM batches: finite, falling loss."""
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_state, make_train_step
+    from repro_torch.train.state import decay_mask
+
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.01, decay_mask=decay_mask(cfg))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated(dev)
+    step = make_train_step(cfg, opt)
+    data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    zero = _zero_counts()  # every count to 0 just before the training path
+    losses, grad_norms, step_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+        _sync(dev)
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t1)
+        grad_norms.append(float(m["grad_norm"]))
+    _no_kernel_counts("training (B3 has no backward; attention runs as attn_impl='ref')", zero)
+    check(all(np.isfinite(losses + grad_norms)), f"training: loss {losses}, grad norms {grad_norms}")
+    check(losses[-1] < losses[0], f"training: the loss did not fall: {losses}")
+    check(int(state["step"]) == TRAIN_STEPS, f"training: state step {int(state['step'])}")
+    warm = sorted(step_s[1:])
+    med = warm[len(warm) // 2]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": cfg.num_params(), "batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses, "grad_norms": grad_norms,
+           "step_s": step_s, "median_step_s": med, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+           "init_s": init_s, "state_bytes": state_bytes, "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+           "compute_dtype": cfg.dtype, "master_dtype": cfg.param_dtype, "attn_impl": cfg.attn_impl}
+    del state, step
+    return out
+
+
+def train_loop(dev, cfg) -> dict:
+    """The train() loop at full width and cut depth, deterministic: an
+    uninterrupted run of 16 steps; a run of 12 with a SimulatedFailure at step
+    10 (recovered from the checkpoint at 8); that directory resumed to 16.
+    Losses, final weights and moments bitwise the uninterrupted run's.
+    Checkpoints go to the system's temporary directory, not the checkout."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.reliability.faults import FailureInjector
+    from repro_torch.train.loop import TrainLoopConfig, train
+
+    root = tempfile.mkdtemp(prefix="train-loop-")
+    where = {"filesystem": mount_of(root), "free_bytes": shutil.disk_usage(root).free}
+
+    def loop(name, total, every):
+        return TrainLoopConfig(total_steps=total, checkpoint_every=every, checkpoint_dir=os.path.join(root, name),
+                               keep=1, seq_len=LOOP_SEQ, global_batch=LOOP_BATCH, log_every=0)
+
+    runs = {}
+    zero = _zero_counts()
+    try:
+        # 4 checkpoints in all (each ~7.6 GB): the reference run saves only at
+        # its end, the failing run at 8 and 12, the resumed run at 16.
+        for name, total, every, kw in (
+                ("uninterrupted", 16, 16, {}),
+                ("failure", 12, 8, {"failure_injector": FailureInjector((10,))}),
+                ("resumed", 16, 8, {})):
+            t0 = time.perf_counter()
+            runs[name] = train(cfg, loop("u" if name == "uninterrupted" else "f", total, every), device=dev, **kw)
+            _sync(dev)
+            runs[name]["run_s"] = time.perf_counter() - t0
+        ckpt = CheckpointManager(os.path.join(root, "f"))
+        steps = ckpt.all_steps()
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                         os.walk(os.path.join(root, "f", f"step_{steps[-1]:010d}")) for f in fs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _no_kernel_counts("the train() loop", zero)
+    u, f, r = runs["uninterrupted"], runs["failure"], runs["resumed"]
+    check(u["final_step"] == 16 and u["recoveries"] == 0, f"uninterrupted run: {u['final_step']}, {u['recoveries']}")
+    check(f["recoveries"] == 1 and f["final_step"] == 12, f"failure run: {f['final_step']}, {f['recoveries']}")
+    check(f["losses"] == u["losses"][:10] + u["losses"][8:12],
+          f"the recovered run's losses {f['losses']} are not the uninterrupted run's {u['losses']}")
+    check(r["losses"] == u["losses"][12:16],
+          f"the resumed run's losses {r['losses']} are not the uninterrupted run's {u['losses']}")
+    pu = dict(u["state"]["params"].named_parameters())
+    pr = dict(r["state"]["params"].named_parameters())
+    check(all(torch.equal(pu[n], pr[n]) for n in pu), "resumed weights are not the uninterrupted run's bits")
+    check(all(torch.equal(u["state"]["opt_state"][k][n], r["state"]["opt_state"][k][n])
+              for k in ("mu", "nu") for n in pu), "resumed moments are not the uninterrupted run's bits")
+    check(u["last_loss"] < u["first_loss"], f"loop: the loss did not fall: {u['losses']}")
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": cfg.num_params(), "batch": LOOP_BATCH,
+           "seq_len": LOOP_SEQ, "checkpoints": 4, "checkpoint_bytes": ckpt_bytes, "checkpoint_dir": where,
+           "deterministic": True, "bitwise_resume": True,
+           "runs": {k: {"final_step": v["final_step"], "recoveries": v["recoveries"], "losses": v["losses"],
+                        "run_s": v["run_s"], "stragglers": len(v["stragglers"])} for k, v in runs.items()}}
+    del runs, u, f, r, pu, pr
+    return out
+
+
+def train_loop_process(cfg, device: str) -> dict:
+    """:func:`train_loop` in a process of its own, made deterministic there
+    alone: cuBLAS with a fixed workspace (``CUBLAS_WORKSPACE_CONFIG``, set
+    before this process first calls cuBLAS) and PyTorch's deterministic
+    kernels (the embedding's and the gather's backward), so a replayed step
+    gives the same bits. The smoke's other phases keep the defaults."""
+    import concurrent.futures
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        return pool.submit(_deterministic_train_loop, cfg, device).result()
+
+
+def _deterministic_train_loop(cfg, device: str) -> dict:
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    return train_loop(torch.device(device), cfg)
+
+
+def train_encdec_step(dev) -> dict:
+    """One whisper-medium step at full width and depth with frames: the
+    encoder's and the cross-attention's gradients finite and non-zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_loss_fn, make_train_state, make_train_step
+    from repro_torch.train.state import decay_mask
+
+    cfg = get_config("whisper-medium")
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.01, decay_mask=decay_mask(cfg))
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+    toks, extra = _stub_inputs(cfg, dev, 2, 129)
+    batch = {"tokens": toks[:, :-1].int(), "labels": toks[:, 1:].int(), **extra}
+    zero = _zero_counts()
+    loss, _ = make_loss_fn(cfg)(state["params"], batch)
+    loss.backward()
+    named = dict(state["params"].named_parameters())
+    norms = {n: float(p.grad.float().norm()) for n, p in named.items()}
+    check(all(np.isfinite(list(norms.values()))), "whisper: a gradient is not finite")
+    groups = {"encoder": [n for n in norms if n.startswith("encoder.")],
+              "cross": [n for n in norms if ".cross." in n or ".lnx." in n]}
+    for g, names in groups.items():
+        check(names and all(norms[n] > 0 for n in names),
+              f"whisper: {g} gradients zero: {[n for n in names if norms[n] == 0][:5]}")
+    for p in named.values():
+        p.grad = None
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, m = make_train_step(cfg, opt)(state, batch)
+    loss_step = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    _no_kernel_counts("the whisper step", zero)
+    check(np.isfinite(loss_step), f"whisper step loss {loss_step}")
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "encoder_layers": cfg.encdec.num_encoder_layers,
+           "params": cfg.num_params(), "batch": 2, "seq_len": 128, "frames": cfg.encdec.encoder_frames,
+           "loss": float(loss.detach()), "step_loss": loss_step, "step_s": step_s,
+           "grad_norm_encoder": float(np.sqrt(sum(norms[n] ** 2 for n in groups["encoder"]))),
+           "grad_norm_cross": float(np.sqrt(sum(norms[n] ** 2 for n in groups["cross"]))),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    del state, loss
+    return out
+
+
+def b3_autograd_raises(dev) -> dict:
+    """B3 has no backward: under autograd the kernel entry raises, on the card,
+    before any launch, and a loss under attn_impl="pallas" too."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import attention
+    from repro_torch.train import make_loss_fn, make_train_state
+    from repro_torch.optim import AdamW
+
+    q = torch.randn((1, 4, 64, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    k = v = torch.randn((1, 4, 64, 64), device=dev, dtype=torch.bfloat16)
+    before = fa.launches
+    msgs = []
+    try:
+        attention(q, k, v, use_kernel=True)
+    except RuntimeError as e:
+        msgs.append(str(e))
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=1, attn_impl="pallas")
+    st = make_train_state(cfg, AdamW(), 0, device=dev)
+    toks = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    try:
+        make_loss_fn(cfg)(st["params"], {"tokens": toks, "labels": toks})
+    except RuntimeError as e:
+        msgs.append(str(e))
+    check(len(msgs) == 2 and all("no backward" in m for m in msgs), f"B3 under autograd: {msgs}")
+    check(fa.launches == before, "B3 launched under autograd")
+    with torch.no_grad():
+        attention(q, k, v, use_kernel=True)
+    check(fa.launches == before + 1, "B3 did not launch under no_grad")
+    del st
+    return {"raised": msgs, "launches_under_autograd": 0}
+
+
+def training(dev, smi) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    steps = train_steps(dev, cfg)
+    emit("training_steps", **steps, nvidia_smi=smi)  # at once: the loop below may fail
+    _empty_cache(dev)
+    t1 = time.perf_counter()
+    loop = train_loop_process(dataclasses.replace(cfg, num_layers=LOOP_LAYERS), str(dev))
+    loop["phase_s"] = time.perf_counter() - t1
+    _empty_cache(dev)
+    whisper = train_encdec_step(dev)
+    _empty_cache(dev)
+    raises = b3_autograd_raises(dev)
+    _empty_cache(dev)
+    emit("training", loop=loop, whisper_step=whisper, b3_autograd=raises,
+         phase_s=time.perf_counter() - t0, nvidia_smi=smi)
+    return steps
 
 
 def ms_of(fn):
@@ -1892,12 +2499,14 @@ def _empty_cache(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def distributed_rank(rank: int, jobs, n_pads, block_dir: str, device: str) -> dict:
+def distributed_rank(rank: int, jobs, n: int, n_pads, block_dir: str, device: str) -> dict:
     """One gloo rank (spawned): each mesh of ``jobs`` through
     ``distributed_pagerank`` on this rank's block file (``n_pads`` maps a
-    grid ``(R, C)`` to its ``n_pad``), then the step that run made, timed
-    per iteration, and again with the device synchronised around ToHub and
-    each collective to split it. Every rank of this machine uses card 0."""
+    grid ``(R, C)`` to its ``n_pad``), with one step made first (its
+    placement names the block file), then that step timed per iteration,
+    and again with the device synchronised around ToHub and each collective
+    to split it; the step's groups are destroyed at the end. Every rank of
+    this machine uses card 0."""
     import hashlib
 
     import torch.distributed as dist
@@ -1916,7 +2525,7 @@ def distributed_rank(rank: int, jobs, n_pads, block_dir: str, device: str) -> di
     for label, shape, axes, src_axes in jobs:
         mesh = make_mesh(shape, axes, device=device)
         R, C = tdist._grid(mesh, src_axes, axes[-1])
-        place = tdist.Placement.on(mesh, n_pads[R, C], src_axes=src_axes, dst_axis=axes[-1])
+        step, place = tdist.make_pagerank_step(mesh, n, n_pads[R, C], src_axes=src_axes, dst_axis=axes[-1])
         blk = tdist.RankBlock.load(os.path.join(block_dir, f"{R}x{C}_{place.row}_{place.col}.npz"))
         first, made = {}, {}
         kernel = dk.subshard_update
@@ -1927,15 +2536,15 @@ def distributed_rank(rank: int, jobs, n_pads, block_dir: str, device: str) -> di
                 first.update(args=(args[0].clone(), *args[1:]), kw=kw, hub=hub.clone())
             return hub
 
-        def keeping(name, fn):  # the run's step and B2 operands, reused for timing
+        def keeping(fn):  # the run's B2 operands, reused for timing
             def call(*args, **kw):
-                made[name] = fn(*args, **kw)
-                return made[name]
+                made["ops"] = fn(*args, **kw)
+                return made["ops"]
             return call
 
-        saved = tdist.make_pagerank_step, tdist.tohub_operands
+        saved = tdist.tohub_operands
         dk.subshard_update = recording
-        tdist.make_pagerank_step, tdist.tohub_operands = keeping("step", saved[0]), keeping("ops", saved[1])
+        tdist.tohub_operands = keeping(saved)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         try:
@@ -1944,19 +2553,18 @@ def distributed_rank(rank: int, jobs, n_pads, block_dir: str, device: str) -> di
             fa.launches = 0
             t0 = time.perf_counter()
             ranks, iters = tdist.distributed_pagerank(blk, mesh, iters=DIST_ITERS, src_axes=src_axes,
-                                                      dst_axis=axes[-1], tol=0.0)
+                                                      dst_axis=axes[-1], tol=0.0, step=step)
             _sync(dev)
             run_s = time.perf_counter() - t0
             counts = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
         finally:
             dk.subshard_update = kernel
-            tdist.make_pagerank_step, tdist.tohub_operands = saved
+            tdist.tohub_operands = saved
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
         want = dk.subshard_update_ref(*first["args"], **first["kw"])
         hub_bitwise = torch.equal(first["hub"].view(torch.int32), want.view(torch.int32))
         del first, want
-        (step, run_place), ops = made["step"], made["ops"]
-        check(run_place == place, f"{label}: rank {rank} placed at {run_place}, its block file at {place}")
+        ops = made["ops"]
 
         # ms per iteration through the same step (staging outside the clock)
         x0 = torch.zeros(blk.n_pad, device=dev)
@@ -2005,6 +2613,7 @@ def distributed_rank(rank: int, jobs, n_pads, block_dir: str, device: str) -> di
             "peak_device_bytes": peak, "sha256": hashlib.sha256(ranks.tobytes()).hexdigest(),
             "ranks": ranks if rank == 0 else None,
         }
+        step.close()
         del step, ops, made, blk, mesh
         dist.barrier()
     return out
@@ -2037,7 +2646,7 @@ def distributed(el, fused12, p12, smi, build_root, device="cuda") -> tuple[int, 
         results = {}
         for world, jobs in DIST_MESHES.items():
             t1 = time.perf_counter()
-            per_rank = tdist.spawn_gloo(distributed_rank, world, jobs, n_pads, tmp, device)
+            per_rank = tdist.spawn_gloo(distributed_rank, world, jobs, el.n, n_pads, tmp, device)
             spawn_s = time.perf_counter() - t1
             for label, *_ in jobs:
                 results[label] = {"ranks_out": [r[label] for r in per_rank], "group_s": spawn_s}
@@ -2874,6 +3483,12 @@ def main() -> None:
     # -- phase 13: the MoE, Mamba and RG-LRU families (ROADMAP A13 item 1) ----
     torch.cuda.empty_cache()
     fam_launches, fam_b3 = lm_families(dev, smi)
+    # -- phase 14: whisper and internvl2 (ROADMAP A13 item 2) -----------------
+    torch.cuda.empty_cache()
+    encdec_launches, encdec_b3 = lm_encdec(dev, smi)
+    # -- phase 15: training with float32 master weights (A13 item 3) ---------
+    torch.cuda.empty_cache()
+    training(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "packed_sweep",
@@ -2917,9 +3532,11 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": b3["launches"] + fam_launches,
-        "launches_by_path": {"lm_serving": b3["launches"], "lm_families": fam_launches},
+        "launches": b3["launches"] + fam_launches + encdec_launches,
+        "launches_by_path": {"lm_serving": b3["launches"], "lm_families": fam_launches,
+                             "lm_encdec": encdec_launches},
         "lm_families": fam_b3,
+        "lm_encdec": encdec_b3,
         "max_abs_err": b3_check["max_abs_err"],
         "ms": b3["ms"],
         "plain_ms": b3["plain_ms"],

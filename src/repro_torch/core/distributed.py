@@ -270,12 +270,14 @@ def _grid(mesh, src_axes, dst_axis) -> tuple[int, int]:
 
 
 def _axes_group(mesh, axes: tuple[str, ...]):
-    """The group of ranks that share this rank's coordinates off ``axes``.
+    """``(group, made)``: the group of ranks that share this rank's
+    coordinates off ``axes``, and the groups made here for it.
 
-    One mesh axis: the mesh's own group. Several: one ``dist.new_group`` per
-    setting of the other axes, created by every rank in the same order."""
+    One mesh axis: the mesh's own group, nothing made. Several: one
+    ``dist.new_group`` per setting of the other axes, created by every rank
+    in the same order; ``made`` holds the one this rank belongs to."""
     if len(axes) == 1:
-        return mesh.get_group(axes[0])
+        return mesh.get_group(axes[0]), []
     dims = [_axis_index(mesh, a) for a in axes]
     others = [d for d in range(mesh.mesh.ndim) if d not in dims]
     grid = mesh.mesh.permute(*others, *dims).reshape(-1, math.prod(mesh.mesh.shape[d] for d in dims))
@@ -285,7 +287,7 @@ def _axes_group(mesh, axes: tuple[str, ...]):
         group = dist.new_group(ranks)
         if me in ranks:
             mine = group
-    return mine
+    return mine, [mine]
 
 
 class PageRankStep:
@@ -296,7 +298,7 @@ class PageRankStep:
     once on :attr:`device`), and returns the next row chunk and the global
     L1 change (a ``(1,)`` tensor, the same on every rank). :attr:`full`
     holds the last iteration's ``(n_pad,)`` vector, which every rank
-    computes.
+    computes. :meth:`close` destroys the process groups the step made.
     """
 
     def __init__(self, mesh, n: int, n_pad: int, *, src_axes, dst_axis, damping):
@@ -304,10 +306,10 @@ class PageRankStep:
             raise ValueError("the mesh must hold every rank of the default group")
         self.placement = Placement.on(mesh, n_pad, src_axes=src_axes, dst_axis=dst_axis)
         src_axes, d = self.placement.src_axes, _axis_index(mesh, dst_axis)
-        self.n, self.damping = n, damping
+        self.n, self.n_pad, self.damping = n, n_pad, damping
         self.device = resolve_device(mesh.device_type)
         self._valid = torch.arange(n_pad, device=self.device) < n  # padding rows stay zero
-        self.src_group = _axes_group(mesh, src_axes)
+        self.src_group, self._made = _axes_group(mesh, src_axes)
         self.dst_group = mesh.get_group(dst_axis)
         # all_gather lists by group rank; the exchange wants column order.
         line = list(mesh.get_coordinate())
@@ -335,6 +337,13 @@ class PageRankStep:
         dist.all_reduce(diff)
         self.full = new_full
         return my, diff / p.C
+
+    def close(self) -> None:
+        """Destroy the groups this step made (several source axes); the
+        mesh's own groups stay."""
+        for group in self._made:
+            dist.destroy_process_group(group)
+        self._made = []
 
 
 def make_pagerank_step(
@@ -364,20 +373,36 @@ def distributed_pagerank(
     src_axes: tuple[str, ...] = ("data",),
     dst_axis: str = "model",
     tol: float = 0.0,
+    step: PageRankStep | None = None,
 ):
     """Run PageRank on the mesh; every rank calls it and gets ``(ranks (n,), iterations)``.
 
     ``el`` is the whole edge list (each rank builds the grid and keeps its
     block) or this rank's :class:`RankBlock` (built once elsewhere, e.g.
-    loaded with :meth:`RankBlock.load`). Each rank stages only its own
-    block, on the mesh's device.
+    loaded with :meth:`RankBlock.load` at ``step.placement``). Each rank
+    stages only its own block, on the mesh's device. ``step``: a
+    :func:`make_pagerank_step` of this mesh to run (the caller closes it);
+    without one, a step is made here and closed at the end.
     """
     R, C = _grid(mesh, src_axes, dst_axis)
     blocks = None if isinstance(el, RankBlock) else build_device_blocks(el, R, C)
     n, n_pad = (el.n, el.n_pad) if blocks is None else (blocks.n, blocks.n_pad)
-    step, place = make_pagerank_step(mesh, n, n_pad, src_axes=src_axes, dst_axis=dst_axis, damping=damping)
-    blk = el if blocks is None else blocks.rank_block(place.row, place.col, el.out_degree)
+    own = step is None
+    if own:
+        step, _ = make_pagerank_step(mesh, n, n_pad, src_axes=src_axes, dst_axis=dst_axis, damping=damping)
+    elif (step.n, step.n_pad, step.damping) != (n, n_pad, damping):
+        raise ValueError("the step was made for another graph or damping")
+    blk = el if blocks is None else blocks.rank_block(step.placement.row, step.placement.col, el.out_degree)
     del blocks
+    try:
+        return _run(blk, step, R, C, n, n_pad, iters, tol)
+    finally:
+        if own:
+            step.close()
+
+
+def _run(blk: RankBlock, step: PageRankStep, R: int, C: int, n: int, n_pad: int, iters: int, tol: float):
+    place = step.placement
     if (blk.R, blk.C, blk.row, blk.col) != (R, C, place.row, place.col):
         raise ValueError(f"block ({blk.row}, {blk.col}) of a {blk.R}x{blk.C} grid given to rank "
                          f"({place.row}, {place.col}) of a {R}x{C} grid")

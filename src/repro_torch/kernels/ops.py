@@ -191,6 +191,16 @@ def attention(
     ``use_kernel=True`` runs :func:`flash_attention`: the CUDA kernel B3 on
     a CUDA tensor (or an error), its plain version on a CPU tensor.
     ``use_kernel=False`` runs the plain materialized softmax.
+
+    B3 has no backward pass (nor has the JAX package's Pallas kernel): with
+    ``use_kernel=True``, inputs that autograd would differentiate raise
+    :class:`RuntimeError` on every device, never a quiet switch to the plain
+    version.
     """
+    if use_kernel and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash-attention kernel B3 has no backward pass; train with "
+            "attn_impl='ref' or 'chunked', or call it under torch.no_grad()"
+        )
     fn = flash_attention if use_kernel else flash_attention_ref
     return fn(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)

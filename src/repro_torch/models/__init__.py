@@ -1,5 +1,5 @@
-"""The LM wing's models: dense, MoE, RG-LRU hybrid and Mamba (port of the JAX package's ``repro.models``)."""
-from repro_torch.models.model import Model
+"""The LM wing's models: dense, MoE, RG-LRU hybrid, Mamba, encoder-decoder and vision stub (port of the JAX package's ``repro.models``)."""
+from repro_torch.models.model import Model, input_specs
 from repro_torch.models.transformer import (
     Block,
     Transformer,
@@ -12,6 +12,7 @@ from repro_torch.models.transformer import (
 
 __all__ = [
     "Model",
+    "input_specs",
     "Block",
     "Transformer",
     "forward",

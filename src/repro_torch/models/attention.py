@@ -1,7 +1,8 @@
 """Attention layer: GQA/MQA, RoPE, local windows, softcap, KV caches.
 
 Port of the JAX package's ``repro.models.attention``. Three compute paths
-for a full sequence, chosen as the reference chooses them (``attn_apply``):
+for a full sequence, chosen as the reference chooses them (``attn_apply``;
+``kv_override`` gives the cross-attention's keys and values):
 
 * ``chunked`` — a plain PyTorch loop over KV chunks with an online
   softmax, for more than 2048 positions or ``attn_impl="chunked"``;
@@ -10,9 +11,12 @@ for a full sequence, chosen as the reference chooses them (``attn_apply``):
   its plain version on the CPU);
 * ``plain`` — a materialized masked softmax, for anything else.
 
-Decode (one query against a cache) is a grouped einsum that never repeats
-the KV heads. The reference's sharding constraints are no-ops without a
-device mesh and are left out (the sharding rules are ROADMAP A13 item 4).
+Decode (one query against a cache, or with ``cross=True`` against the
+encoder's keys and values) is a grouped einsum that never repeats the KV
+heads. Kernel B3 has no backward: training runs ``"ref"`` or
+``"chunked"``, and ``"pallas"`` raises under autograd. The reference's
+sharding constraints are no-ops without a device mesh and are left out
+(the sharding rules are ROADMAP A13 item 4).
 """
 from __future__ import annotations
 
@@ -226,30 +230,42 @@ def attn_decode(
     pos: int,  # index of the new token
     *,
     kind: str = "global",
+    cross: bool = False,
+    cross_len: int | None = None,
     use_rope: bool = True,
 ):
     """One decode step. Returns ``(out, cache)``.
 
     Unlike the reference, which returns a new cache, the port writes the new
     key and value into ``cache`` in place (one slot per step) and returns it.
+    ``cross=True`` (cross-attention): q only, no RoPE, against the
+    precomputed ``cache["k"]``/``cache["v"]`` (their first ``cross_len``
+    positions, all by default); the cache is left as it is.
     """
     dtype = x.dtype
     scale = cfg.head_dim**-0.5
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, device=x.device)
-    q, k_new, v_new = _project_qkv(attn, x, cfg, positions, use_rope=use_rope)
-    k, v = cache["k"], cache["v"]
-    size = k.shape[1]
-    slot = pos % size if kind == "local" else pos
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
-    idx = torch.arange(size, device=x.device)
-    if kind == "local":
-        # Ring buffer: slot s holds the key of position pos − ((pos − s) mod
-        # size); it is valid iff that position has been written.
-        valid = torch.remainder(pos - idx, size) <= pos
+    if cross:
+        q = torch.einsum("bsd,dhk->bshk", x, attn.wq.to(dtype))
+        if cfg.qkv_bias:
+            q = q + attn.bq.to(dtype)
+        k, v = cache["k"], cache["v"]
+        valid = torch.arange(k.shape[1], device=x.device) < (cross_len or k.shape[1])
     else:
-        valid = idx <= pos
+        positions = torch.full((b, 1), pos, device=x.device)
+        q, k_new, v_new = _project_qkv(attn, x, cfg, positions, use_rope=use_rope)
+        k, v = cache["k"], cache["v"]
+        size = k.shape[1]
+        slot = pos % size if kind == "local" else pos
+        k[:, slot] = k_new[:, 0].to(k.dtype)
+        v[:, slot] = v_new[:, 0].to(v.dtype)
+        idx = torch.arange(size, device=x.device)
+        if kind == "local":
+            # Ring buffer: slot s holds the key of position pos − ((pos − s) mod
+            # size); it is valid iff that position has been written.
+            valid = torch.remainder(pos - idx, size) <= pos
+        else:
+            valid = idx <= pos
     # GQA by a grouped einsum: the KV heads are never repeated.
     group = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, 1, cfg.num_kv_heads, group, cfg.head_dim)

@@ -24,7 +24,8 @@ __all__ = [
 
 
 def weight(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised parameter that keeps no gradient (the port serves)."""
+    """An uninitialised parameter with gradients off (serving); a
+    ``Transformer`` built with ``master_weights`` turns them on."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 

@@ -301,13 +301,20 @@ def test_serve_launcher_runs_on_the_cpu():
      "whisper-medium", "internvl2-26b"],
 )
 def test_families_not_ported_raise(arch):
-    """whisper and internvl2 still raise, naming A13 item 2; the MoE, RG-LRU
-    and Mamba families are ported (ROADMAP A13 item 1) and build and run."""
+    """Every family is ported and builds and runs: the MoE, RG-LRU and Mamba
+    families (ROADMAP A13 item 1), and whisper (with its stub frames) and
+    internvl2 (with its patch embeddings; A13 item 2). Nothing raises
+    ``NotImplementedError`` any more."""
     cfg = get_config(arch, smoke=True)
-    if cfg.is_enc_dec or cfg.vision is not None:
-        with pytest.raises(NotImplementedError, match="ROADMAP A13 item 2"):
-            ttr.init_params(cfg, 0, device="cpu")
-        return
     params = ttr.init_params(cfg, 0, device="cpu")
-    logits, _ = ttr.forward(cfg, params, torch.from_numpy(_tokens(cfg, 1, 8)))
-    assert logits.shape == (1, 8, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
+    rng = np.random.default_rng(0)
+    extra = {}
+    if cfg.is_enc_dec:
+        extra["frames"] = torch.from_numpy(
+            rng.standard_normal((1, cfg.encdec.encoder_frames, cfg.d_model)).astype(np.float32))
+    if cfg.vision is not None:
+        extra["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((1, cfg.vision.num_patches, cfg.d_model)).astype(np.float32))
+    logits, _ = ttr.forward(cfg, params, torch.from_numpy(_tokens(cfg, 1, 8)), **extra)
+    n = 8 + (cfg.vision.num_patches if cfg.vision is not None else 0)
+    assert logits.shape == (1, n, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
