@@ -165,6 +165,26 @@ Phases, each printing one JSON line:
     run's. One whisper-medium step at full size with frames: encoder and
     cross-attention gradients finite and non-zero. B3 under autograd
     raises (``ops.attention`` and a "pallas" loss) without launching.
+16. fsdp (after training): the FSDP training profile. deepseek-moe-16b at
+    full width, depth 28 -> 2 (the dense layer 0 and one MoE layer, 1.09 B
+    parameters), float32 masters and bf16 compute, under
+    ``activate_mesh(mesh, TRAIN_FSDP_RULES)`` on gloo ranks sharing card 0
+    (deterministic kernels), meshes (1, 1) and (2, 2) over ("data",
+    "model"): ``make_train_state`` (each rank keeps its shards),
+    ``make_train_step`` with AdamW on 4 ``SyntheticLM`` batches of 8 x 1024,
+    then one forward of the rank's rows with ``attn_impl="pallas"``.
+    Checks: on (1, 1) the losses, grad norms, parameters and moments are
+    bitwise the unsharded step's; on (2, 2) each rank's CE and MoE terms of
+    step 1 equal the unsharded loss on its rows (2048 tokens: the sorted
+    path on both sides) within 1e-5, and its parameters after step 1 lie
+    within 5e-5 of a one-process replay (rank 0: the four rows' gradients
+    averaged, clipped, AdamW; grad_norm within 2**-8); each rank's resident
+    state equals the specs' closed form (a quarter of (1, 1)'s) and its
+    gathered and summed bytes a step theirs; the loss is finite and falls;
+    no kernel launches in training; B3 once per attention layer per rank in
+    the forward, logits within 2**-4 of the largest |logit| of "ref". Prints
+    ms per step per mesh and rank, the bytes, peak memory per rank and the
+    B3 launches.
 
 The engine's surface above the session, on the main path's scale-22 graph
 (after phase 3, 6 and 8; each with every count set to 0 just before it):
@@ -261,8 +281,8 @@ beside the pinned-copy bound, ``disk_path`` its launches and the cold and
 warm ms per sweep), time, plain time, bound and library time; B2's are the pass
 entry's, with ``calls_ms``/``calls_launches`` for the per-call form, and its
 launches by path add the distributed phase's (with each mesh's ms per
-iteration); B3's add lm_families' and lm_encdec's (with their times at
-the new shapes).
+iteration); B3's add lm_families', lm_encdec's (with their times at
+the new shapes) and fsdp's.
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 and the script exits non-zero. Without a CUDA device it exits non-zero
 before printing any result.
@@ -1492,6 +1512,399 @@ def training(dev, smi) -> dict:
     emit("training", loop=loop, whisper_step=whisper, b3_autograd=raises,
          phase_s=time.perf_counter() - t0, nvidia_smi=smi)
     return steps
+
+
+# -- the FSDP training profile on a mesh (ROADMAP A13 item 4, first half) -----
+FSDP_ARCH, FSDP_LAYERS = "deepseek-moe-16b", 2  # full width; depth 28 -> 2: dense layer 0 and one MoE layer
+FSDP_BATCH, FSDP_SEQ, FSDP_STEPS, FSDP_LR = 8, 1024, 4, 3e-4
+FSDP_AXES = ("data", "model")
+FSDP_MESHES = ((2, 2), (1, 1))  # one spawn of 4 ranks: (2, 2), then rank 0 alone
+FSDP_TERMS_RTOL = 1e-5  # a rank's CE and MoE terms against the unsharded loss on its rows
+FSDP_PARAM_ATOL = 5e-5  # the (2, 2) step's parameters against the replay: the tests' float32 bar
+FSDP_NORM_RTOL = 2.0**-8  # grad_norm: each summed gradient entry is rounded once to bf16
+# The forward's logits: B3 (bf16) and "ref" attention differ by bf16 rounding,
+# which moves a token's top-6 of 64 experts where two router probabilities
+# nearly tie, or its capacity slot; such a token's logits move by a whole
+# expert's output. The 2**-4 bar holds at every token whose assignment (the
+# experts that kept it) is the same in both forwards, and at most this share
+# of the tokens may change their assignment.
+FSDP_MOVED_SHARE = 0.05
+
+
+def _fsdp_closed_forms(cfg, mesh, rules) -> dict:
+    """From the specs: a rank's resident bytes (parameters and both moments,
+    float32, and the two int32 counters) and one step's gathered and summed
+    bytes. Every parameter is gathered once in the forward (bf16 where the
+    step casts it, float32 otherwise) and a layer's again when backward
+    recomputes it; every cotangent, of the same dtype, is summed once."""
+    from repro_torch.convert import lm_tree_ndims
+    from repro_torch.models import Transformer
+    from repro_torch.sharding import fsdp
+    from repro_torch.sharding.rules import NamedSharding, param_specs
+
+    whole = Transformer(cfg, device="meta", master_weights=True)
+    specs, ndims = param_specs(whole, mesh, rules), lm_tree_ndims(cfg, whole)
+    resident = gathered = reduced = 0
+    for n, p in whole.named_parameters():
+        sh = NamedSharding(mesh, specs[n])
+        resident += 3 * 4 * int(np.prod(sh.shard_shape(p.shape)))
+        if fsdp.num_ranks(mesh) > 1:
+            reads = 1 + n.startswith("layers.") + (n == "embed" and cfg.tie_embeddings)
+            nbytes = p.numel() * (2 if ndims[n] >= 2 else 4)
+            gathered += nbytes * reads
+            reduced += nbytes * (1 + (n == "embed" and cfg.tie_embeddings))
+    return {"resident_bytes": resident + 8, "gathered_bytes_per_step": gathered,
+            "reduced_bytes_per_step": reduced}
+
+
+def _state_bytes(state) -> int:
+    tensors = list(state["params"].parameters()) + [state["step"], state["opt_state"]["count"]]
+    tensors += list(state["opt_state"]["mu"].values()) + list(state["opt_state"]["nu"].values())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fsdp_rank(rank: int, cfg, batch_size: int, seq: int, device: str, tmp: str) -> dict:
+    """One gloo rank (spawned) of the FSDP profile, every rank on card 0 (or
+    on the CPU, to rehearse at a small size), with deterministic kernels
+    (cuBLAS with a fixed workspace, PyTorch's deterministic algorithms: the
+    (1, 1) comparison is bitwise, the replay's per-rank terms too). The four
+    ranks run the (2, 2) mesh; then each leaves the group for a group of its
+    own (a ``FileStore`` under ``tmp``), and rank 0 runs the (1, 1) mesh in
+    it: one spawn, one start-up (about 10 s of ``import torch`` a process on
+    the card machine)."""
+    import torch.distributed as dist
+
+    entered = time.time()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    out = {(2, 2): fsdp_mesh(rank, (2, 2), cfg, batch_size, seq, device)}
+    dist.destroy_process_group()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, f"alone{rank}"), 1), rank=0,
+                            world_size=1)
+    if rank == 0:
+        out[(1, 1)] = fsdp_mesh(0, (1, 1), cfg, batch_size, seq, device)
+    out[(2, 2)]["wall"]["entered"] = entered
+    return out
+
+
+def fsdp_mesh(rank: int, shape, cfg, batch_size: int, seq: int, device: str) -> dict:
+    """This rank's part of the FSDP profile on a ``shape`` mesh over ("data",
+    "model") for ``cfg``: FSDP_STEPS steps of ``make_train_step`` under
+    TRAIN_FSDP_RULES on SyntheticLM batches, then one forward with
+    attn_impl="pallas" against "ref"; on (1, 1) the unsharded step on the
+    same batches, bitwise; on (2, 2) rank 0 replays step 1 in one process
+    and each rank holds its shard to it."""
+    wall = {"entered": time.time()}
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import dsss_spmv as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import packed_sweep as ps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import forward
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.clipping import clip_scale, global_norm
+    from repro_torch.sharding import fsdp
+    from repro_torch.sharding.rules import TRAIN_FSDP_RULES, NamedSharding, activate_mesh, spec_for, tree_shardings
+    from repro_torch.train import make_loss_fn, make_train_state, make_train_step
+    from repro_torch.train import step as tstep
+    from repro_torch.train.state import decay_mask
+
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(shape, FSDP_AXES, device=device)
+    world = fsdp.num_ranks(mesh)
+    opt = AdamW(learning_rate=FSDP_LR, weight_decay=0.01, decay_mask=decay_mask(cfg))
+    data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, seq, batch_size, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()} for i in range(FSDP_STEPS)]
+    rows = NamedSharding(mesh, spec_for(("batch", None), (batch_size, seq), mesh, TRAIN_FSDP_RULES))
+    forms = _fsdp_closed_forms(cfg, mesh, TRAIN_FSDP_RULES)
+    wall["ready"] = time.time()
+
+    # A rank's own terms of step 1, read where the step computes them: its CE
+    # sums before the sum over ranks, and the MoE layer's local aux.
+    seen: dict = {}
+    ce_sums, aux_fn = tstep._ce_sums, moe_mod._aux
+
+    def ce_recording(*args):
+        out = ce_sums(*args)
+        seen.setdefault("ce", tuple(v.detach().clone() for v in out))
+        return out
+
+    def aux_recording(*args):
+        out = aux_fn(*args)
+        seen.setdefault("aux", {k: v.detach().clone() for k, v in out.items()})
+        return out
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {"rank": rank, "coordinate": list(mesh.get_coordinate()), **forms}
+    with activate_mesh(mesh, TRAIN_FSDP_RULES):
+        t0 = time.perf_counter()
+        state = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+        _sync(dev)
+        out["init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()  # the phase's clock on this rank, from here
+        out["state_bytes"] = _state_bytes(state)
+        step = make_train_step(cfg, opt)
+        # Each step's time in the parameter collectives (every all_to_all and
+        # its host copies; the device synchronised around each, as the host
+        # copy into page-locked memory already waits for it).
+        a2a, in_a2a = fsdp._all_to_all, [0.0]
+
+        def a2a_timed(send, group):
+            _sync(dev)
+            t = time.perf_counter()
+            got = a2a(send, group)
+            _sync(dev)
+            in_a2a[0] += time.perf_counter() - t
+            return got
+
+        ps.launches = dk.launches = fa.launches = 0  # every count to 0 just before the FSDP path
+        metrics, step_ms, a2a_ms, traffic = [], [], [], []
+        for i, batch in enumerate(batches):
+            tstep._ce_sums, moe_mod._aux = (ce_recording, aux_recording) if i == 0 else (ce_sums, aux_fn)
+            fsdp._all_to_all = a2a_timed
+            g0, r0 = fsdp.gathered_bytes, fsdp.reduced_bytes
+            in_a2a[0] = 0.0
+            _sync(dev)
+            dist.barrier()
+            t1 = time.perf_counter()
+            try:
+                state, m = step(state, batch)
+                _sync(dev)
+            finally:
+                tstep._ce_sums, moe_mod._aux, fsdp._all_to_all = ce_sums, aux_fn, a2a
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            a2a_ms.append(1e3 * in_a2a[0])
+            traffic.append((fsdp.gathered_bytes - g0, fsdp.reduced_bytes - r0))
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                after_one = {n: p.detach().clone() for n, p in state["params"].named_parameters()}
+        out["t_steps"] = time.perf_counter() - t0
+        out["train_launches"] = {"packed_sweep": ps.launches, "dsss_spmv": dk.launches, "flash_attention": fa.launches}
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+        out.update(metrics=metrics, step_ms=step_ms, collective_ms=a2a_ms, traffic=traffic)
+
+        # -- one forward through B3: this rank's rows, against "ref" ------------
+        cfg_p = dataclasses.replace(cfg, attn_impl="pallas")
+        toks = rows.shard(batches[0]["tokens"])
+        # Each token's MoE assignment in each forward: the experts that kept it
+        # (-1 for a dropped (token, k) pair), sorted.
+        routes, route_fn = [], moe_mod._route
+
+        def route_recording(*args):
+            got = route_fn(*args)
+            ids = got[2]
+            order, keep, _, _ = moe_mod._placement(ids, cfg)
+            kept = torch.empty_like(keep)
+            kept[order] = keep
+            routes.append(torch.sort(torch.where(kept.reshape(ids.shape), ids, -1), dim=-1).values)
+            return got
+
+        moe_mod._route = route_recording
+        try:
+            with torch.no_grad():
+                view = tstep._cast_params_for_compute(state["params"], cfg_p)
+                fa.launches = 0
+                logits_p, _ = forward(cfg_p, view, toks)
+                _sync(dev)
+                out["forward_launches"] = fa.launches
+                logits_r, _ = forward(cfg, view, toks)
+        finally:
+            moe_mod._route = route_fn
+        diff = (logits_p.float() - logits_r.float()).abs().amax(dim=-1).flatten()  # per token
+        scale = float(logits_r.float().abs().max())
+        moved = (routes[0] != routes[1]).any(dim=-1)  # tokens whose assignment differs
+        out.update(forward_max_abs=float(diff.max()), forward_max_logit=scale,
+                   forward_finite=bool(torch.isfinite(logits_p).all()),
+                   forward_tokens=int(diff.numel()),
+                   forward_tokens_over_bar=int((diff > 2.0**-4 * scale).sum()),
+                   forward_max_abs_same_assignment=float(diff[~moved].max()) if bool((~moved).any()) else 0.0,
+                   forward_tokens_moved=int(moved.sum()),
+                   forward_argmax_agree=float((logits_p.argmax(-1) == logits_r.argmax(-1)).float().mean()))
+        out["t_forward"] = time.perf_counter() - t0
+        del view, logits_p, logits_r, routes
+    fsdp_state = state
+
+    # -- the bars --------------------------------------------------------------
+    step_fn = make_train_step(cfg, opt)
+    if world == 1:
+        # The unsharded step on the same batches: loss, grad_norm, parameters
+        # and moments bit for bit.
+        ref = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+        same = []
+        for i, batch in enumerate(batches):
+            ref, m = step_fn(ref, batch)
+            same.append(all(float(m[k]) == metrics[i][k] for k in ("loss", "grad_norm")))
+        pa, pb = dict(fsdp_state["params"].named_parameters()), dict(ref["params"].named_parameters())
+        out["bitwise"] = {
+            "loss_and_grad_norm": all(same),
+            "params": all(torch.equal(pa[n], pb[n]) for n in pa),
+            "moments": all(torch.equal(fsdp_state["opt_state"][k][n], ref["opt_state"][k][n])
+                           for k in ("mu", "nu") for n in pa),
+        }
+        del ref
+        out["t_end"] = time.perf_counter() - t0
+        out["wall"] = {**wall, "done": time.time()}
+        return out
+
+    # One-process replay of step 1 on rank 0: the unsharded loss on each
+    # rank's rows, the four gradients averaged, clipped, AdamW. Rank 0 sends
+    # each updated parameter to every rank, which holds its shard to it.
+    from repro_torch.models import Transformer
+
+    shardings = tree_shardings(fsdp_state["params"], mesh, TRAIN_FSDP_RULES)
+    whole = {n: tuple(p.shape) for n, p in Transformer(cfg, device="meta", master_weights=True).named_parameters()}
+    terms = torch.zeros((world, 4), dtype=torch.float64, device=dev)  # ce, lbl, dropped, loss per rank's rows
+    replay_norm = torch.zeros((), device=dev)
+    named = {}
+    if rank == 0:
+        rs = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+        loss_fn = make_loss_fn(cfg)
+        named = dict(rs["params"].named_parameters())
+        for r in range(world):
+            coord = tuple(int(c) for c in np.unravel_index(r, shape))  # make_mesh is rank-major
+            loss, m = loss_fn(rs["params"], {k: rows.shard(v, coordinate=coord) for k, v in batches[0].items()})
+            loss.backward()  # the four gradients add up in .grad
+            terms[r] = torch.tensor([float(m[k].detach()) for k in ("ce_loss", "load_balance_loss",
+                                                                     "dropped_fraction", "loss")],
+                                    dtype=torch.float64)
+        with torch.no_grad():
+            grads = {n: p.grad / world for n, p in named.items()}
+            replay_norm = global_norm(grads)
+            s = clip_scale(replay_norm, 1.0)
+            for g in grads.values():
+                g.mul_(s)
+            opt.update(grads, rs["opt_state"], rs["params"])
+        del grads, rs
+    dist.broadcast(terms, 0)
+    dist.broadcast(replay_norm, 0)
+    worst = 0.0
+    for n, mine in after_one.items():  # through page-locked host memory: gloo's CPU path is the faster
+        full = torch.empty(whole[n], pin_memory=cuda)
+        if rank == 0:
+            full.copy_(named[n].detach())
+        dist.broadcast(full, 0)
+        worst = max(worst, float((shardings[n].shard(full.to(dev)) - mine).abs().max()))
+        del full
+    del named, after_one
+    tot, zl, cnt = seen["ce"]
+    cnt = torch.clamp(cnt, min=1.0)
+    mine = [float(tot / cnt + 1e-4 * zl / cnt), float(seen["aux"]["load_balance_loss"]),
+            float(seen["aux"]["dropped_fraction"])]
+    out["terms"] = {"rank": mine, "unsharded": terms[rank, :3].tolist(), "bitwise": mine == terms[rank, :3].tolist()}
+    out["replay"] = {"max_abs_param": worst, "grad_norm": float(replay_norm), "loss_mean": float(terms[:, 3].mean())}
+    dist.barrier()
+    out["t_end"] = time.perf_counter() - t0
+    out["wall"] = {**wall, "done": time.time()}
+    return out
+
+
+def fsdp_training(smi, device: str = "cuda", cfg=None, batch: int = FSDP_BATCH, seq: int = FSDP_SEQ
+                  ) -> tuple[int, dict]:
+    """The FSDP training profile: deepseek-moe-16b at full width, 2 layers
+    (or ``cfg``), on gloo ranks sharing the card, meshes (1, 1) and (2, 2)."""
+    import dataclasses
+
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as tdist
+
+    cfg = cfg or dataclasses.replace(get_config(FSDP_ARCH), num_layers=FSDP_LAYERS)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fsdp-")
+    try:
+        w1 = time.time()
+        per_rank = tdist.spawn_gloo(fsdp_rank, 4, cfg, batch, seq, device, tmp)
+        w2 = time.time()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = {shape: [r[shape] for r in per_rank if shape in r] for shape in FSDP_MESHES}
+    two = runs[(2, 2)]
+    spawn = {"total_s": w2 - w1, "to_entered_s": max(r["wall"]["entered"] for r in two) - w1,
+             "to_ready_s": max(r["wall"]["ready"] for r in two) - w1}
+    summary = {}
+    for shape, rows in runs.items():
+        losses = [m["loss"] for m in rows[0]["metrics"]]
+        summary["x".join(map(str, shape))] = {
+            "ranks": len(rows), "losses": losses, "grad_norms": [m["grad_norm"] for m in rows[0]["metrics"]],
+            "metrics_step1": rows[0]["metrics"][0],
+            "step_ms": [r["step_ms"] for r in rows],
+            "collective_ms": [r["collective_ms"] for r in rows],
+            "median_step_ms": max(float(np.median(r["step_ms"][1:])) for r in rows),
+            "gathered_bytes_per_step": rows[0]["traffic"][0][0], "reduced_bytes_per_step": rows[0]["traffic"][0][1],
+            "closed_form": {k: rows[0][k] for k in ("gathered_bytes_per_step", "reduced_bytes_per_step",
+                                                    "resident_bytes")},
+            "resident_bytes": [r["state_bytes"] for r in rows],
+            "peak_device_bytes": [r["peak_device_bytes"] for r in rows],
+            "init_s": [r["init_s"] for r in rows],
+            "rank_s": {k: [r[k] for r in rows] for k in ("t_steps", "t_forward", "t_end")},
+            "b3_launches": sum(r["forward_launches"] for r in rows),
+            "forward": {k: [r["forward_" + k] for r in rows]
+                        for k in ("max_abs", "max_logit", "tokens", "tokens_over_bar", "max_abs_same_assignment",
+                                  "tokens_moved", "argmax_agree")},
+        }
+    one, four = runs[(1, 1)][0], runs[(2, 2)]
+    summary["1x1"]["bitwise_unsharded"] = one["bitwise"]
+    summary["2x2"]["terms"] = [r["terms"] for r in four]
+    summary["2x2"]["replay"] = [r["replay"] for r in four]
+    launches = sum(v["b3_launches"] for v in summary.values())
+    emit("fsdp", arch=cfg.name, layers=cfg.num_layers, params=cfg.num_params(), batch=batch, seq_len=seq,
+         steps=FSDP_STEPS, dtype=cfg.dtype, meshes=summary, b3_launches=launches, spawn=spawn,
+         phase_s=time.perf_counter() - t0,
+         note="one card shared by the ranks, collectives through gloo: not a multi-GPU measurement",
+         nvidia_smi=smi)  # before the checks, which may fail
+    for shape, rows in runs.items():
+        label = "x".join(map(str, shape))
+        for r in rows:
+            check(all(v == 0 for v in r["train_launches"].values()),
+                  f"fsdp {label}: the train steps launched a kernel: {r['train_launches']}")
+            want = cfg.num_layers if device == "cuda" else 0  # the CPU runs B3's plain version
+            check(r["forward_launches"] == want,
+                  f"fsdp {label} rank {r['rank']}: B3 launched {r['forward_launches']} times for {cfg.num_layers} layers")
+            check(r["forward_finite"] and r["forward_max_abs_same_assignment"] <= 2.0**-4 * r["forward_max_logit"],
+                  f"fsdp {label} rank {r['rank']}: pallas logits {r['forward_max_abs_same_assignment']} off ref "
+                  f"at max {r['forward_max_logit']} where the MoE assignment is the same")
+            check(r["forward_tokens_moved"] <= FSDP_MOVED_SHARE * r["forward_tokens"],
+                  f"fsdp {label} rank {r['rank']}: {r['forward_tokens_moved']} of {r['forward_tokens']} tokens "
+                  "changed their MoE assignment between pallas and ref")
+            check(r["metrics"] == rows[0]["metrics"], f"fsdp {label}: the ranks report other metrics")
+            check(all(t == (r["gathered_bytes_per_step"], r["reduced_bytes_per_step"]) for t in r["traffic"]),
+                  f"fsdp {label}: traffic {r['traffic']} against the closed form "
+                  f"{(r['gathered_bytes_per_step'], r['reduced_bytes_per_step'])}")
+            check(r["state_bytes"] == r["resident_bytes"],
+                  f"fsdp {label}: {r['state_bytes']} resident bytes, closed form {r['resident_bytes']}")
+        losses = summary[label]["losses"]
+        check(all(np.isfinite([m[k] for m in rows[0]["metrics"] for k in m])), f"fsdp {label}: {losses}")
+        check(losses[-1] < losses[0], f"fsdp {label}: the loss did not fall: {losses}")
+    check(all(one["bitwise"].values()), f"fsdp 1x1: not the unsharded step's bits: {one['bitwise']}")
+    for r in four:
+        check(abs(4 * r["state_bytes"] / one["state_bytes"] - 1) < 0.01,
+              f"fsdp 2x2: rank {r['rank']} holds {r['state_bytes']} B against (1, 1)'s {one['state_bytes']}")
+        for got, want, what in zip(r["terms"]["rank"], r["terms"]["unsharded"], ("ce", "load_balance", "dropped")):
+            check(abs(got - want) <= FSDP_TERMS_RTOL * abs(want) + 1e-12,
+                  f"fsdp 2x2 rank {r['rank']}: {what} {got} against the unsharded loss's {want}")
+        check(r["replay"]["max_abs_param"] <= FSDP_PARAM_ATOL,
+              f"fsdp 2x2 rank {r['rank']}: parameters {r['replay']['max_abs_param']} off the replay")
+        rel = abs(r["metrics"][0]["grad_norm"] / r["replay"]["grad_norm"] - 1)
+        check(rel <= FSDP_NORM_RTOL, f"fsdp 2x2: grad_norm {r['metrics'][0]['grad_norm']} against the "
+              f"replay's {r['replay']['grad_norm']}")
+        check(abs(r["metrics"][0]["loss"] / r["replay"]["loss_mean"] - 1) <= FSDP_TERMS_RTOL,
+              f"fsdp 2x2: loss {r['metrics'][0]['loss']} against the replay's mean {r['replay']['loss_mean']}")
+    return launches, {k: {"launches": v["b3_launches"], "median_step_ms": v["median_step_ms"]}
+                      for k, v in summary.items()}
 
 
 def ms_of(fn):
@@ -3489,6 +3902,9 @@ def main() -> None:
     # -- phase 15: training with float32 master weights (A13 item 3) ---------
     torch.cuda.empty_cache()
     training(dev, smi)
+    # -- phase 16: the FSDP training profile on a mesh (A13 item 4) ----------
+    torch.cuda.empty_cache()
+    fsdp_launches, fsdp_b3 = fsdp_training(smi)
 
     print(json.dumps({"kernels": [{
         "name": "packed_sweep",
@@ -3532,11 +3948,12 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": b3["launches"] + fam_launches + encdec_launches,
+        "launches": b3["launches"] + fam_launches + encdec_launches + fsdp_launches,
         "launches_by_path": {"lm_serving": b3["launches"], "lm_families": fam_launches,
-                             "lm_encdec": encdec_launches},
+                             "lm_encdec": encdec_launches, "fsdp": fsdp_launches},
         "lm_families": fam_b3,
         "lm_encdec": encdec_b3,
+        "fsdp": fsdp_b3,
         "max_abs_err": b3_check["max_abs_err"],
         "ms": b3["ms"],
         "plain_ms": b3["plain_ms"],

@@ -29,7 +29,7 @@ numbered densely (the rank's hub slots) and placed into the column chunk
 by index afterwards.
 
 ``graph_input_specs`` (the dry run's stand-ins) is not ported yet
-(ROADMAP A13 item 4).
+(ROADMAP A13 item 5).
 """
 from __future__ import annotations
 
@@ -421,7 +421,7 @@ def _run(blk: RankBlock, step: PageRankStep, R: int, C: int, n: int, n_pad: int,
 
 
 # ---------------------------------------------------------------------------
-# Paper-scale graphs, as data (the dry run that uses them is ROADMAP A13.4).
+# Paper-scale graphs, as data (the dry run that uses them is ROADMAP A13 item 5).
 # ---------------------------------------------------------------------------
 GRAPH_SCALES = {
     # name: (n, m) from paper Table III

@@ -15,8 +15,8 @@ Decode (one query against a cache, or with ``cross=True`` against the
 encoder's keys and values) is a grouped einsum that never repeats the KV
 heads. Kernel B3 has no backward: training runs ``"ref"`` or
 ``"chunked"``, and ``"pallas"`` raises under autograd. The reference's
-sharding constraints are no-ops without a device mesh and are left out
-(the sharding rules are ROADMAP A13 item 4).
+sharding constraints are left out: each rank of the port computes on
+plain local tensors (``repro_torch.sharding``).
 """
 from __future__ import annotations
 

@@ -33,10 +33,18 @@ def TrainState(params, opt_state, step) -> dict:
 
 def make_train_state(cfg, optimizer, key: int | torch.Generator = 0, *, device=None) -> dict:
     """Fresh weights drawn from ``key`` (a seed or a ``torch.Generator``),
-    stored as float32 masters on ``device`` (``None``: the CUDA card)."""
+    stored as float32 masters on ``device`` (``None``: the CUDA card).
+    Under an active mesh each rank draws the whole weights, keeps its shard
+    of each (``sharding.rules.tree_shardings``) and makes the optimizer's
+    moments for the shards alone."""
     from repro_torch.models import init_params
+    from repro_torch.sharding import fsdp
+    from repro_torch.sharding.rules import active_mesh, active_rules, tree_shardings
 
     params = init_params(cfg, key, device=device, master_weights=True)
+    mesh = active_mesh()
+    if mesh is not None:
+        fsdp.shard_module_(params, tree_shardings(params, mesh, active_rules()))
     return TrainState(params, optimizer.init(params),
                       torch.zeros((), dtype=torch.int32, device=params.device))
 

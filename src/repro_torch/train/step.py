@@ -10,6 +10,19 @@ the cast's backward takes them to float32. The step updates the state in
 place (under ``torch.no_grad()``) and returns it, where the reference
 returns a new one. Attention runs as ``cfg.attn_impl`` says; kernel B3 has
 no backward, so ``"pallas"`` raises here.
+
+Under an active mesh (``sharding.rules.activate_mesh(mesh,
+TRAIN_FSDP_RULES)``: pure FSDP) the state holds this rank's shard of every
+parameter and moment (``make_train_state``), and a step takes the global
+batch and keeps this rank's rows. The compute view gathers each parameter
+(cast first: bf16 on the wire) when the layer that reads it runs, and again
+when the layer is recomputed in backward; the gathers' backward sums every
+gradient over every rank and keeps this rank's shard (``sharding/fsdp.py``).
+The loss and the metrics are the global ones: the CE's sums and the token
+count are summed over the ranks, the MoE's aux terms averaged
+(``models/moe.py``), and ``grad_norm`` is the whole gradient's. Clipping
+and the optimizer run on the shards. One rank computes exactly what the
+unsharded step does.
 """
 from __future__ import annotations
 
@@ -23,6 +36,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import lm_tree_ndims
 from repro_torch.models import forward
 from repro_torch.optim.clipping import clip_scale, global_norm
+from repro_torch.sharding import fsdp
+from repro_torch.sharding.rules import active_mesh, active_rules, tree_shardings
 
 __all__ = ["make_loss_fn", "make_train_step", "chunked_cross_entropy", "CE_CHUNK"]
 
@@ -47,7 +62,17 @@ def chunked_cross_entropy(hidden, head, labels, *, z_loss: float = 1e-4, softcap
     nothing). Each chunk projects through the ``(V, D)`` head, takes a
     float32 log-softmax and is recomputed in backward, so the ``(B, S, V)``
     logits never exist at once. Returns ``(mean nll + z_loss · mean lse²,
-    valid count)``."""
+    valid count)``; under an active mesh the means and the count are over
+    every rank's tokens."""
+    tot, zl, cnt = _ce_sums(hidden, head, labels, softcap)
+    if active_mesh() is not None:
+        tot, zl, cnt = (fsdp.sum_over_ranks(v) for v in (tot, zl, cnt))
+    cnt = torch.clamp(cnt, min=1.0)
+    return tot / cnt + z_loss * zl / cnt, cnt
+
+
+def _ce_sums(hidden, head, labels, softcap):
+    """This rank's CE sums: ``(Σ nll, Σ lse², valid count)``."""
     b, s, _ = hidden.shape
     nchunk = -(-s // CE_CHUNK)
     pad = nchunk * CE_CHUNK - s
@@ -61,25 +86,31 @@ def chunked_cross_entropy(hidden, head, labels, *, z_loss: float = 1e-4, softcap
         args = (hidden[:, part], head, labels[:, part], softcap)
         a, b_, n = checkpoint(_chunk_loss, *args, use_reentrant=False) if remat else _chunk_loss(*args)
         tot, zl, cnt = tot + a, zl + b_, cnt + n
-    cnt = torch.clamp(cnt, min=1.0)
-    return tot / cnt + z_loss * zl / cnt, cnt
+    return tot, zl, cnt
 
 
 def _cast_params_for_compute(params, cfg: ModelConfig):
     """Master-weight mixed precision: a view of ``params`` (the same module
     tree, its parameters as plain attributes) whose ≥ 2-D float32 tensors
     are cast to ``cfg.dtype`` ONCE for the step. The cast's backward takes
-    the ``cfg.dtype`` cotangents back to float32 for the masters."""
+    the ``cfg.dtype`` cotangents back to float32 for the masters. Under an
+    active mesh the view holds this rank's cast shards and reading one
+    gathers it (``sharding.fsdp.gathered_view``)."""
     dtype = getattr(torch, cfg.dtype)
     ndims = lm_tree_ndims(cfg, params)
+
+    def cast(name: str, p):
+        return p.to(dtype) if ndims[name] >= 2 and p.dtype == torch.float32 else p
+
+    if active_mesh() is not None:
+        return fsdp.gathered_view(params, cfg, cast)
 
     def view(module, prefix: str):
         out = copy.copy(module)  # shares nothing mutable below
         out.__dict__["_parameters"] = {}
         out.__dict__["_modules"] = {k: view(sub, f"{prefix}{k}.") for k, sub in module._modules.items()}
         for k, p in module._parameters.items():
-            cast = ndims[prefix + k] >= 2 and p.dtype == torch.float32
-            out.__dict__[k] = p.to(dtype) if cast else p
+            out.__dict__[k] = cast(prefix + k, p)
         return out
 
     return view(params, "")
@@ -125,6 +156,8 @@ def make_train_step(
     z_loss: float = 1e-4,
 ):
     """``train_step(state, batch) -> (state, metrics)``, updating ``state`` in place.
+    Under an active mesh ``batch`` is the global batch and ``state`` this
+    rank's shards (module docstring).
 
     ``accum_steps > 1`` runs the microbatches (the batch's leading axis
     split) one after another and sums their gradients, in bfloat16 when
@@ -141,6 +174,9 @@ def make_train_step(
 
     def train_step(state, batch):
         params = state["params"]
+        mesh, rules = active_mesh(), active_rules()
+        if mesh is not None:
+            batch = fsdp.shard_batch(batch, mesh, rules)
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None
@@ -169,7 +205,10 @@ def make_train_step(
             loss = loss_sum / accum_steps
             metrics = {k: torch.stack([m[k].to(loss.device) for m in stack]).mean() for k in stack[0]}
         with torch.no_grad():
-            gnorm = global_norm(grads)
+            if mesh is None:
+                gnorm = global_norm(grads)
+            else:
+                gnorm = fsdp.global_norm(grads, tree_shardings(params, mesh, rules), mesh)
             scale = clip_scale(gnorm, clip_norm)
             for g in grads.values():  # clip_by_global_norm, in place
                 g.mul_(scale)

@@ -41,6 +41,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "import repro_torch.models.moe, repro_torch.models.ssm, repro_torch.models.rglru\n"
         "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint, repro_torch.train\n"
         "import repro_torch.train.loop, repro_torch.launch.train, repro_torch.models.model\n"
+        "import repro_torch.sharding, repro_torch.sharding.rules, repro_torch.sharding.fsdp\n"
+        "import repro_torch.launch.bench_gloo\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
